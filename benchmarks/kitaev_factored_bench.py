@@ -1,5 +1,5 @@
 """Factored-Kitaev matvec benchmark: n-site Kitaev chain over the full
-2^n space as half-cut Kronecker GEMMs (pure MXU work).
+2^n space as half-cut Kronecker GEMMs.
 
 At n=24 the state is a (4096, 4096) matrix; the flat ELL for the same
 Hamiltonian would need ~2^24 * slots gathered reads per matvec — the
@@ -7,7 +7,7 @@ factored form replaces that with two dense half-exchange GEMMs + a few
 cross-bond GEMM pairs.
 
 Usage: python benchmarks/kitaev_factored_bench.py [nsite]
-(LPP_BENCH_FORCE_CPU=1 pins the CPU backend.)
+(JAX_PLATFORMS=cpu pins the CPU backend.)
 """
 
 import json
@@ -18,14 +18,12 @@ import time
 import numpy as np
 import jax
 
-if os.environ.get("LPP_BENCH_FORCE_CPU"):
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 
 def main():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), ".."))
     from lanczosplusplus_tpu.io_.input_parser import parse_input
     from lanczosplusplus_tpu.geometry import Geometry
     from lanczosplusplus_tpu.models import build_model

@@ -1,5 +1,5 @@
 """Flagship thermal demo: FTLM <E>(beta) over the FULL 2^24 Kitaev
-chain (dim 16 777 216) using the block-factorized MXU Hamiltonian.
+chain (dim 16 777 216) using the block-factorized Hamiltonian.
 
 The reference's thermal path (ed/ExactDiag) is O(dim^3) dense — at
 this dimension it would need ~1e22 FLOPs and 2 PB; here the batched
@@ -17,12 +17,10 @@ import time
 import numpy as np
 import jax
 
-if os.environ.get("LPP_BENCH_FORCE_CPU"):
-    jax.config.update("jax_platforms", "cpu")
-
 
 def main():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), ".."))
     from lanczosplusplus_tpu.io_.input_parser import parse_input
     from lanczosplusplus_tpu.geometry import Geometry
     from lanczosplusplus_tpu.models import build_model

@@ -3,9 +3,12 @@
 Hilbert dimension C(16,8)^2 = 165,636,900.  The reference cannot store
 this sector (CRS ~1.1e10 nnz) and its on-the-fly pthreads apply is
 ~seconds per iteration; here the Kronecker factorization keeps the
-Hamiltonian at two 12870^2 dense factors (1.3 GB) applied as MXU GEMMs,
-and the memory-light plain two-pass Lanczos (no stored Krylov basis)
-fits the whole solve on one chip.
+hopping as two 12870-row one-spin gather maps applied along the axes
+of the (12870, 12870) state matrix (the gather form; on an H100 it
+beats the two dense-factor GEMMs at true f32, see PERF.md), and the
+memory-light plain two-pass Lanczos (no stored Krylov basis) fits the
+whole solve on one card.  `python chip_smoke.py` runs the same sector
+through the CLI with refinement.
 
 Validation: U=0 ground energy equals the analytic free-fermion value.
 Then solves U=4 and prints the energy per site.
@@ -29,7 +32,6 @@ def main(nsite=16, u=4.0, steps=150):
     t0 = time.time()
     ham0, basis = build_hamiltonian(nsite, dtype=np.float32)
     print(f"build: {time.time() - t0:.1f}s dim={ham0.dim}", flush=True)
-    ham0 = ham0.densify_factors()
     # zero out the diagonal for the U=0 check
     import jax.numpy as jnp
     import dataclasses

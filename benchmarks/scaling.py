@@ -1,10 +1,10 @@
 """Row-partition scaling harness (BASELINE.json configs: 1 chip /
 1 host / >= 2 hosts).
 
-With real multi-chip hardware absent, this measures the distributed
-Lanczos step on a virtual CPU mesh to validate the sharding and the
-collective structure (functional scaling); on a real pod slice the same
-code path runs over ICI.
+This measures the distributed Lanczos step on a virtual CPU mesh to
+validate the sharding and the collective structure (functional
+scaling); on four NVLink-connected GPUs the same code path runs with
+NCCL collectives.
 
 Usage: JAX_PLATFORMS=cpu PYTHONPATH= \
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \

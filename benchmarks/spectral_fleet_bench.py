@@ -6,7 +6,7 @@ The DOS / S(q,omega) pipeline needs one plain tridiagonalization per
 in the same destination sector run as ONE batched SpMM recurrence
 (Engine.spectral_functions_batched -> tridiagonalize_plain_batched):
 the Hamiltonian factors are read once per block step instead of once
-per vector step, and each step is an MXU GEMM batch.
+per vector step, and each step is a batched GEMM.
 
 Workload: 14-site half-filled Hubbard chain (sector dim 11.8M), DOS
 fleet = 14 diagonal pairs x 2 types -> two (R=14, dim ~10.3M) batched

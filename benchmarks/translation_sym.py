@@ -74,8 +74,8 @@ def kitaev_flagship(n: int):
 
 def projected_flagship(n: int):
     """Momentum-projected Lanczos over the full 2^n Kitaev chain
-    (symmetry/projected.py) — the TPU-native translation-sector path,
-    runnable here on CPU to document equivalence at non-toy dims
+    (symmetry/projected.py, SolverOptions=projected), runnable on the
+    CPU to document equivalence at non-toy dims
     (per-k E0s, min-k vs unsymmetrized, winner purity)."""
     from lanczosplusplus_tpu.io_.input_parser import parse_input
     from lanczosplusplus_tpu.geometry import Geometry

@@ -1,11 +1,11 @@
-"""lanczosplusplus_tpu: a TPU-native exact-diagonalization framework.
+"""lanczosplusplus_tpu: an exact-diagonalization framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 g1257/LanczosPlusPlus (C++ Lanczos exact diagonalization for models of
 strongly correlated electrons): symmetry-sector bases, sparse Hamiltonian
 assembly, Lanczos ground states, spectral functions via continued
 fractions, static correlators, reduced density matrices and
-finite-temperature averages — built TPU-first:
+finite-temperature averages — built for an accelerator:
 
 - bit-string bases are device arrays of uint64 words with vectorized
   combinadic ranking (reference: src/Models/HubbardOneOrbital/BasisOneSpin.h:52-81)

@@ -19,6 +19,7 @@ import argparse
 
 import numpy as np
 
+from lanczosplusplus_tpu.config import enable_compile_cache
 from lanczosplusplus_tpu.io_.input_parser import read_input
 from lanczosplusplus_tpu.io_.input_check import validate_input
 from lanczosplusplus_tpu.geometry import Geometry
@@ -32,6 +33,7 @@ def run(argv=None):
     p.add_argument("--tinf", action="store_true",
                    help="also print the T=infinity mean energy")
     args = p.parse_args(argv)
+    enable_compile_cache()
     inp = read_input(args.input)
     validate_input(inp)
     geometry = Geometry(inp)

@@ -7,6 +7,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from lanczosplusplus_tpu.config import enable_compile_cache
 from lanczosplusplus_tpu.io_.input_parser import read_input
 from lanczosplusplus_tpu.io_.input_check import validate_input
 from lanczosplusplus_tpu.geometry import Geometry
@@ -24,6 +25,7 @@ def run(argv=None):
                    help="momentum index (reference reuses -r)")
     p.add_argument("--orbs", default="0,1")
     args = p.parse_args(argv)
+    enable_compile_cache()
     inp = read_input(args.input)
     validate_input(inp)
     geometry = Geometry(inp)

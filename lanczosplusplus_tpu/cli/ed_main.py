@@ -6,6 +6,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from lanczosplusplus_tpu.config import enable_compile_cache
 from lanczosplusplus_tpu.io_.input_parser import read_input
 from lanczosplusplus_tpu.io_.input_check import validate_input
 from lanczosplusplus_tpu.geometry import Geometry
@@ -27,6 +28,7 @@ def run(argv=None):
                           "beta -> inf tail is exact, where plain FTLM "
                           "is noisy)")
     args = p.parse_args(argv)
+    enable_compile_cache()
     inp = read_input(args.input)
     validate_input(inp)
     geometry = Geometry(inp)

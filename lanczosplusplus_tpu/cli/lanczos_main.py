@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 
+from lanczosplusplus_tpu.config import enable_compile_cache
 from lanczosplusplus_tpu import __version__
 from lanczosplusplus_tpu.io_.input_parser import read_input
 from lanczosplusplus_tpu.io_.input_check import validate_input
@@ -67,6 +68,7 @@ def run(argv=None):
     p.add_argument("-V", "--version", action="version",
                    version=__version__)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     np.set_printoptions(precision=args.precision)
     inp = read_input(args.input)

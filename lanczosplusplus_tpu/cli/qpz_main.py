@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import argparse
 
+from lanczosplusplus_tpu.config import enable_compile_cache
 from lanczosplusplus_tpu.io_.input_parser import read_input
 from lanczosplusplus_tpu.io_.input_check import validate_input
 from lanczosplusplus_tpu.geometry import Geometry
@@ -20,6 +21,7 @@ def run(argv=None):
     p.add_argument("--ratio", action="store_true",
                    help="normalize by <phi_k|phi_k>")
     args = p.parse_args(argv)
+    enable_compile_cache()
     inp = read_input(args.input)
     validate_input(inp)
     geometry = Geometry(inp)

@@ -11,12 +11,14 @@ import sys
 
 import numpy as np
 
+from lanczosplusplus_tpu.config import enable_compile_cache
 from lanczosplusplus_tpu.models.spin_orbital import build_spin_orbital
 from lanczosplusplus_tpu.solver import lanczos as lz
 
 
 def run(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    enable_compile_cache()
     if len(argv) < 1:
         print("USAGE: spin_orbital_main nsites [twiceJ]", file=sys.stderr)
         raise SystemExit(1)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from lanczosplusplus_tpu.config import enable_compile_cache
 from lanczosplusplus_tpu.io_.input_parser import read_input
 from lanczosplusplus_tpu.io_.input_check import validate_input
 from lanczosplusplus_tpu.geometry import Geometry
@@ -37,6 +38,7 @@ def run(argv=None):
                         "Z/density/energy only (correlator poles need "
                         "the full spectra)")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     inp = read_input(args.input)
     validate_input(inp)

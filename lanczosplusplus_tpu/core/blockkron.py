@@ -15,8 +15,8 @@ once the Hilbert space is viewed as a direct sum of product blocks:
   rectangular (left (x) right) transfer couplings (same shape as
   models/heisenberg_factored.py, generalized).
 
-Every hot op here is a dense GEMM on the MXU — the TPU answer to the
-3x-slower generic gather-ELL path those models otherwise run.
+Every hot op here is a dense GEMM instead of the generic gather-ELL
+path those models otherwise run.
 
 Block state layout: x splits into per-block (rows, cols) matrices
 X_b[r, c] at static offsets; `matvec` applies
@@ -39,7 +39,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
+from lanczosplusplus_tpu.config import matmul_precision
+
 
 
 @jax.tree_util.register_dataclass
@@ -130,9 +131,9 @@ def make_perm_cross(row_src, row_amp, col_src, col_amp, src, dst,
     state_cast = "bf16" if cross_dtype == jnp.bfloat16 else None
     return PermCrossTerm(
         row_src=jnp.asarray(row_src),
-        row_amp=_to_device(np.asarray(row_amp), dtype),
+        row_amp=jnp.asarray(np.asarray(row_amp), dtype),
         col_src=jnp.asarray(col_src),
-        col_amp=_to_device(col_amp_h, dtype),
+        col_amp=jnp.asarray(col_amp_h, dtype),
         src=src, dst=dst, groups=tuple(tuple(g) for g in groups),
         state_cast=state_cast,
         col_groups=tuple(tuple(g) for g in cgroups))
@@ -169,13 +170,10 @@ def _use_col_dedup(t: "PermCrossTerm") -> bool:
 def _perm_cross_apply(t: "PermCrossTerm", xsrc: jax.Array) -> jax.Array:
     """(rows_dst, cols_dst) contribution of one PermCrossTerm.
 
-    Applied bond-by-bond with 1-D-index gathers only: this TPU's XLA
-    lowers 1-D-index row/column gathers on 2-D blocks to vectorized
-    slice gathers (~150-225 GB/s measured), while any N-D fancy gather
-    or take_along_axis lowers to per-element gathers that run ~400x
-    slower (measured in benchmarks/permcross_variants.py — a fully
-    vectorized stacked-gather rewrite was 350x SLOWER than this loop at
-    the Rashba-13 bench shapes).  Channels sharing a row map (groups)
+    Applied bond-by-bond with 1-D-index row/column gathers on 2-D
+    blocks, which XLA lowers to slice gathers (an N-D fancy gather or
+    take_along_axis lowers to per-element gathers instead; how the two
+    compare on the GPU is not measured).  Channels sharing a row map (groups)
     reuse one row gather; channels sharing a (col map, col amp) pair
     (col_groups — e.g. the hop and Rashba channels of one crossing
     bond) combine their row sides BEFORE the column gather, halving
@@ -259,7 +257,7 @@ class BlockKronHamiltonian:
     blocks; their diag/row/col applications run as ONE batched einsum
     per tier from the precomputed stacked tensors `diag_t`/`row_t`/
     `col_t`, while blocks not covered by a tier (the big ones, where a
-    lone MXU GEMM is already efficient) keep the per-block path."""
+    lone GEMM is already efficient) keep the per-block path."""
     diag: Tuple[jax.Array, ...]               # per block (rows, cols)
     row_ops: Tuple[Optional[jax.Array], ...]  # per block (rows, rows)
     col_ops: Tuple[Optional[jax.Array], ...]  # per block (cols, cols)
@@ -331,7 +329,8 @@ class BlockKronHamiltonian:
         in_tier = self._tier_members()
         ys = [self.diag[b] * xs[b] if b not in in_tier else None
               for b in range(len(xs))]
-        pet = dict(preferred_element_type=x.dtype)
+        pet = dict(preferred_element_type=x.dtype,
+                   precision=matmul_precision())
         for t, (idxs, R, C) in enumerate(self.tiers or ()):
             xt = jnp.stack([jnp.pad(xs[b], ((0, R - self.shapes[b][0]),
                                             (0, C - self.shapes[b][1])))
@@ -353,12 +352,14 @@ class BlockKronHamiltonian:
                 ys[b] = ys[b] + jax.lax.dot_general(
                     self.row_ops[b], xs[b],
                     dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=x.dtype)
+                    preferred_element_type=x.dtype,
+                    precision=matmul_precision())
             if self.col_ops[b] is not None:
                 ys[b] = ys[b] + jax.lax.dot_general(
                     xs[b], self.col_ops[b],
                     dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=x.dtype)
+                    preferred_element_type=x.dtype,
+                    precision=matmul_precision())
         for t in self.cross:
             # t1[n, r_src, c_dst] = X_src @ right[n]^T
             t1 = jnp.einsum("ndc,rc->nrd", t.right, xs[t.src], **pet)
@@ -375,7 +376,7 @@ class BlockKronHamiltonian:
 
     def matmat_t(self, xk):
         """Batch-major SpMM (k, dim) -> (k, dim): each block op folds
-        the batch into the GEMM row/column dimension (pure MXU)."""
+        the batch into the GEMM row/column dimension (pure GEMM)."""
         k = xk.shape[0]
         off = 0
         xs = []
@@ -385,7 +386,8 @@ class BlockKronHamiltonian:
         in_tier = self._tier_members()
         ys = [self.diag[b][None] * xs[b] if b not in in_tier else None
               for b in range(len(xs))]
-        pet = dict(preferred_element_type=xk.dtype)
+        pet = dict(preferred_element_type=xk.dtype,
+                   precision=matmul_precision())
         for t, (idxs, R, C) in enumerate(self.tiers or ()):
             xt = jnp.stack(
                 [jnp.pad(xs[b], ((0, 0), (0, R - self.shapes[b][0]),
@@ -409,13 +411,15 @@ class BlockKronHamiltonian:
                 t = jax.lax.dot_general(
                     xs[b], self.row_ops[b],
                     dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=xk.dtype)   # (k, c, r)
+                    preferred_element_type=xk.dtype,
+                    precision=matmul_precision())   # (k, c, r)
                 ys[b] = ys[b] + jnp.swapaxes(t, 1, 2)
             if self.col_ops[b] is not None:
                 ys[b] = ys[b] + jax.lax.dot_general(
                     xs[b].reshape(k * r, c), self.col_ops[b],
                     dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=xk.dtype).reshape(k, r, c)
+                    preferred_element_type=xk.dtype,
+                    precision=matmul_precision()).reshape(k, r, c)
         for t in self.cross:
             t1 = jnp.einsum("ndc,krc->knrd", t.right, xs[t.src], **pet)
             ys[t.dst] = ys[t.dst] + jnp.einsum(
@@ -445,7 +449,7 @@ def tierize(bk: BlockKronHamiltonian,
     shape tiers (dims rounded up to powers of two, so pad waste is
     bounded by 4x on FLOPs that are ~free at these sizes) and
     precompute the stacked diag/row/col tensors.  Blocks larger than
-    the threshold keep the per-block GEMM path, where a lone MXU GEMM
+    the threshold keep the per-block GEMM path, where a lone GEMM
     is already efficient.  The per-block fields stay populated (nnz
     accounting, to_dense, host-f64 refinement use them)."""
     def up2(v):
@@ -502,7 +506,7 @@ def tierize_uniform(bk: BlockKronHamiltonian, pad_to: int = 128,
     Many-small-block forms (the t-J half-cut: 25-45 blocks, largest a
     few hundred squared) are dispatch-bound, not FLOP-bound — measured
     2.9 ms for 8 GFLOP of GEMMs on the 18-site bench sector, an ~18x
-    gap to the MXU roofline that kernel batching closes.  The padding
+    gap to the GEMM roofline that kernel batching closes.  The padding
     FLOPs are free at these sizes; `max_blowup` guards against
     applying this to forms with strongly heterogeneous block shapes
     (e.g. the Rashba half-cut), where padded-state memory and FLOPs

@@ -6,7 +6,7 @@ src/Engine/DefaultSymmetry.h:54-57, PsimagLite CrsMatrix/SparseRow used
 at src/Models/HubbardOneOrbital/HubbardHelper.h:75-103).
 
 ED Hamiltonians have *bounded* row sparsity (<= a few entries per
-Hamiltonian term), so the TPU-native layout is ELL: per-row padded
+Hamiltonian term), so the device layout is ELL: per-row padded
 (cols, vals) arrays applied as gathers — static shapes, fully
 vectorized, shardable by rows.
 
@@ -16,8 +16,7 @@ Two structural refinements exploited here:
   Hubbard hopping) are Kronecker products I (x) A_up or A_dn (x) I.
   Applying them on the state reshaped to (size_down, size_up) is an
   axis-wise batched gather: index memory is O(size_up * K) instead of
-  O(dim * K) and the gather has long contiguous second axes that map
-  well onto the VPU.
+  O(dim * K) and the gather has long contiguous second axes.
 - the diagonal is kept separate (every row has one).
 """
 
@@ -30,6 +29,8 @@ from typing import Optional, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 def coo_to_ell(dim: int, rows: np.ndarray, cols: np.ndarray,
@@ -111,11 +112,11 @@ class SpinFactorizedPart:
       when the dense factors would not fit;
     - dense form (`up_dense`/`dn_dense`): the one-spin operators are
       materialized as (size, size) matrices and applied as GEMMs —
-      Y += X @ up_dense^T; Y += dn_dense @ X — which puts the whole
-      Lanczos hot loop on the MXU.  For a half-filled n-site Hubbard
-      chain the factor is C(n, n/2)^2 entries (47 MB at n=14), far
-      below HBM while the matmul runs orders of magnitude faster than
-      the column gather.
+      Y += X @ up_dense^T; Y += dn_dense @ X — which turns the whole
+      Lanczos hot loop into GEMMs.  For a half-filled n-site Hubbard
+      chain the factor is C(n, n/2)^2 entries (47 MB at n=14).  Which
+      form is faster depends on the sector size and the matmul
+      precision (PERF.md); the gather form is the default.
     """
     up_cols: Optional[jax.Array]  # (size_up, Ku) int32
     up_vals: Optional[jax.Array]
@@ -129,18 +130,18 @@ class SpinFactorizedPart:
         if self.up_dense is not None:
             # dense factors may be stored below the compute precision
             # (bfloat16): cast the state tile down, accumulate in the
-            # compute dtype — the MXU runs native bf16 with f32
-            # accumulation, ~3x the f32 (3-pass) GEMM rate
+            # compute dtype — native bf16 GEMMs with f32
+            # accumulation
             xu = _downcast_state(x2d, self.up_dense.dtype)
             # y[d, u] += sum_c A_u[u, c] x[d, c]
             y = y + jax.lax.dot_general(
                 xu, self.up_dense,
                 dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=x2d.dtype)
+                preferred_element_type=x2d.dtype,
+                precision=matmul_precision())
         elif self.up_cols is not None:
-            # column gathers are slow on TPU (lane-dimension scatter
-            # of reads); transpose once and turn them into contiguous
-            # row gathers, then transpose back
+            # transpose once and turn the column gathers into
+            # contiguous row gathers, then transpose back
             xt = x2d.T  # (szu, szd)
             acc = jnp.zeros_like(xt)
             for k in range(self.up_cols.shape[1]):
@@ -152,37 +153,11 @@ class SpinFactorizedPart:
             y = y + jax.lax.dot_general(
                 self.dn_dense, xd,
                 dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=x2d.dtype)
+                preferred_element_type=x2d.dtype,
+                precision=matmul_precision())
         elif self.dn_cols is not None:
             for k in range(self.dn_cols.shape[1]):
                 y = y + self.dn_vals[:, k, None] * x2d[self.dn_cols[:, k], :]
-        return y
-
-    def apply_pallas(self, x2d):
-        """Dense-factor apply with the GEMMs routed through the tiled
-        Pallas kernel (ops/pallas_kernels.factor_matmul) instead of
-        XLA dot_general — the A/B side of the bench's pallas_factor_ms
-        measurement (VERDICT r3 item 6).  f32 dense factors only;
-        other configurations fall back to the standard apply."""
-        if (self.up_dense is None and self.dn_dense is None) or \
-                x2d.dtype != jnp.float32:
-            return self.apply(x2d)
-        from lanczosplusplus_tpu.ops.pallas_kernels import factor_matmul
-
-        y = jnp.zeros_like(x2d)
-        if self.up_dense is not None and \
-                self.up_dense.dtype == jnp.float32:
-            # y[d, u] += sum_c x[d, c] A_u[u, c]
-            y = y + factor_matmul(x2d, self.up_dense)
-        elif self.up_cols is not None or self.up_dense is not None:
-            return self.apply(x2d)
-        if self.dn_dense is not None and \
-                self.dn_dense.dtype == jnp.float32:
-            # y += A_d @ X = (X^T @ A_d^T)^T
-            y = y + factor_matmul(x2d.T, self.dn_dense).T
-        elif self.dn_cols is not None or self.dn_dense is not None:
-            # mixed configuration: recompute everything the plain way
-            return self.apply(x2d)
         return y
 
     @property
@@ -234,18 +209,6 @@ class Hamiltonian:
             y = y + self.ell.apply(x)
         return y
 
-    def matvec_pallas(self, x):
-        """matvec with the dense-factor GEMMs routed through the Pallas
-        tiled kernel — A/B'd against the XLA path in bench.py
-        (pallas_factor_ms; VERDICT r3 item 6)."""
-        y = self.diag * x
-        if self.factorized is not None:
-            x2d = x.reshape(self.spin_shape)
-            y = y + self.factorized.apply_pallas(x2d).reshape(-1)
-        if self.ell is not None:
-            y = y + self.ell.apply(x)
-        return y
-
     def matmat(self, x):
         """Batched SpMM: apply H to the columns of x (dim, k) — block
         Lanczos / batched spectral runs amortize index traffic over the
@@ -255,14 +218,15 @@ class Hamiltonian:
             f = self.factorized
             szd, szu = self.spin_shape
             k = x.shape[1]
-            # (szd, szu, k) batched view; dense factors stay on the MXU
+            # (szd, szu, k) batched view; dense factors stay GEMMs
             x3 = x.reshape(szd, szu, k)
             if f.up_dense is not None:
                 xu = _downcast_state(x3, f.up_dense.dtype)
                 y3 = jax.lax.dot_general(
                     f.up_dense, xu,
                     dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=x.dtype)  # (szu, szd, k)
+                    preferred_element_type=x.dtype,
+                    precision=matmul_precision())  # (szu, szd, k)
                 y = y + jnp.transpose(y3, (1, 0, 2)).reshape(-1, k)
             elif f.up_cols is not None:
                 acc = jnp.zeros_like(x3)
@@ -275,7 +239,8 @@ class Hamiltonian:
                 y3 = jax.lax.dot_general(
                     f.dn_dense, xd,
                     dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=x.dtype)  # (szd, szu, k)
+                    preferred_element_type=x.dtype,
+                    precision=matmul_precision())  # (szd, szu, k)
                 y = y + y3.reshape(-1, k)
             elif f.dn_cols is not None:
                 acc = jnp.zeros_like(x3)
@@ -285,16 +250,17 @@ class Hamiltonian:
                 y = y + acc.reshape(-1, k)
         if self.ell is not None:
             y = y + jnp.einsum("rk,rkb->rb", self.ell.vals,
-                               x[self.ell.cols, :])
+                               x[self.ell.cols, :],
+                               precision=matmul_precision())
         return y
 
     def matmat_t(self, xk):
         """Batch-MAJOR SpMM: apply H to the rows of xk (k, dim).
 
-        On TPU the (dim, k) column layout of `matmat` forces strided
+        The (dim, k) column layout of `matmat` forces strided
         transposes around the factor GEMMs (k is the minor dim).  With
         the batch leading, the up-factor contraction folds (k, szd)
-        into the GEMM row dimension (pure MXU, no transpose) and the
+        into the GEMM row dimension (pure GEMM, no transpose) and the
         dn-factor needs a single well-tiled (k, u, c)->(k, c, u)
         transpose per application.  Recurrences (FTLM/KPM) keep their
         carriers in this layout for the whole scan."""
@@ -309,7 +275,8 @@ class Hamiltonian:
                 t = jax.lax.dot_general(
                     xu.reshape(k * szd, szu), f.up_dense,
                     dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=xk.dtype)       # (k*d, v)
+                    preferred_element_type=xk.dtype,
+                    precision=matmul_precision())       # (k*d, v)
                 y = y + t.reshape(k, -1)
             elif f.up_cols is not None:
                 acc = jnp.zeros_like(x3)
@@ -322,7 +289,8 @@ class Hamiltonian:
                 t = jax.lax.dot_general(
                     xd, f.dn_dense,
                     dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=xk.dtype)       # (k, u, c)
+                    preferred_element_type=xk.dtype,
+                    precision=matmul_precision())       # (k, u, c)
                 y = y + jnp.swapaxes(t, 1, 2).reshape(k, -1)
             elif f.dn_cols is not None:
                 acc = jnp.zeros_like(x3)
@@ -332,7 +300,8 @@ class Hamiltonian:
                 y = y + acc.reshape(k, -1)
         if self.ell is not None:
             y = y + jnp.einsum("rs,brs->br", self.ell.vals,
-                               xk[:, self.ell.cols])
+                               xk[:, self.ell.cols],
+                               precision=matmul_precision())
         return y
 
     @property
@@ -351,33 +320,29 @@ class Hamiltonian:
     def densify_factors(self, max_bytes: int = 2 << 30,
                         factor_dtype=None) -> "Hamiltonian":
         """Materialize the Kronecker one-spin factors as dense matrices
-        when they fit in `max_bytes`, so matvec runs as MXU GEMMs.
+        when they fit in `max_bytes`, so matvec runs as GEMMs.
 
         factor_dtype (e.g. jnp.bfloat16) stores the factors below the
-        compute precision: the GEMMs then run native-bf16 on the MXU
-        with f32 accumulation at ~4e-3 relative hop-amplitude
-        quantization.  On bandwidth-bound sectors (14-site Hubbard:
-        0.84 of the HBM roofline) the measured gain is only ~3% — use
-        it when the factor GEMMs, not HBM, dominate."""
+        compute precision: the GEMMs then run native-bf16 with f32
+        accumulation at ~4e-3 relative hop-amplitude quantization — a
+        throughput mode for when the factor GEMMs, not HBM, dominate."""
         f = self.factorized
         if f is None:
             return self
         szd, szu = self.spin_shape
 
         def densify(cols, vals, size):
-            from lanczosplusplus_tpu.utils.transfer import (to_device,
-                                                            to_host)
             if cols is None:
                 return None
             itemsize = np.dtype(vals.dtype).itemsize
             if size * size * itemsize > max_bytes:
                 return None
             c = np.asarray(cols)
-            v = to_host(vals)
+            v = np.asarray(vals)
             a = np.zeros((size, size), dtype=v.dtype)
             r = np.repeat(np.arange(size), c.shape[1])
             np.add.at(a, (r, c.reshape(-1)), v.reshape(-1))
-            return to_device(a, factor_dtype or v.dtype)
+            return jnp.asarray(a, factor_dtype or v.dtype)
 
         up_d = densify(f.up_cols, f.up_vals, szu)
         dn_d = densify(f.dn_cols, f.dn_vals, szd)
@@ -451,14 +416,13 @@ class Hamiltonian:
     def to_dense(self) -> np.ndarray:
         """Dense matrix for oracle tests (reference dumpmatrix path,
         src/Engine/DefaultSymmetry.h:61-94)."""
-        from lanczosplusplus_tpu.utils.transfer import to_host
         dim = self.dim
-        m = np.zeros((dim, dim), dtype=to_host(self.diag).dtype
-                     if self.ell is None else to_host(self.ell.vals).dtype)
-        m[np.arange(dim), np.arange(dim)] += to_host(self.diag)
+        m = np.zeros((dim, dim), dtype=np.asarray(self.diag).dtype
+                     if self.ell is None else np.asarray(self.ell.vals).dtype)
+        m[np.arange(dim), np.arange(dim)] += np.asarray(self.diag)
         if self.ell is not None:
             cols = np.asarray(self.ell.cols)
-            vals = to_host(self.ell.vals)
+            vals = np.asarray(self.ell.vals)
             r = np.repeat(np.arange(dim), cols.shape[1])
             np.add.at(m, (r, cols.reshape(-1)), vals.reshape(-1))
         if self.factorized is not None:

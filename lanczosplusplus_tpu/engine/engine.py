@@ -10,11 +10,8 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import (to_device as _to_device,
-                                                to_host as _to_host,
-                                                zeros as _zeros)
 
-from lanczosplusplus_tpu.config import Config
+from lanczosplusplus_tpu.config import Config, matmul_precision
 from lanczosplusplus_tpu.solver import lanczos as lz
 from lanczosplusplus_tpu.engine import operators as ops
 from lanczosplusplus_tpu.engine.operators import LabeledOperator
@@ -27,16 +24,16 @@ def apply_operator_map(tgt, amp, dst_dim, vec, factor=1.0):
     scatter (reference: Engine.h:416-458).  Small sectors scatter on
     host; large ones as a device scatter-add (sector-to-sector operator
     application is itself a sparse-matrix apply)."""
-    src = _to_host(vec)
+    src = np.asarray(vec)
     out_dtype = np.result_type(src.dtype, np.asarray(factor).dtype,
                                np.float64)
     mask = tgt >= 0
     if dst_dim >= (1 << 20):
         safe_tgt = jnp.asarray(np.where(mask, tgt, 0))
-        contrib = _to_device(
+        contrib = jnp.asarray(
             np.where(mask, factor * amp * src, 0).astype(out_dtype))
-        out = _zeros(dst_dim, out_dtype).at[safe_tgt].add(contrib)
-        return _to_host(out)
+        out = jnp.zeros(dst_dim, out_dtype).at[safe_tgt].add(contrib)
+        return np.asarray(out)
     out = np.zeros(dst_dim, dtype=out_dtype)
     np.add.at(out, tgt[mask], factor * amp[mask] * src[mask])
     return out
@@ -58,7 +55,8 @@ class Engine:
             lanczos_eps=inp.real("LanczosEps", default=1e-12))
         self.excited = inp.integer("Excited", default=0)
         self.parts = model.default_parts(inp)
-        self.basis = model.create_basis(self.parts)
+        with self.progress.phase("basis"):
+            self.basis = model.create_basis(self.parts)
         self._flat_ham = None
         nstates = self.excited + 1
         use_symmetry = (inp.integer("UseTranslationSymmetry", default=0) or
@@ -68,23 +66,25 @@ class Engine:
         if "factored" in inp.solver_options() and not use_symmetry:
             # attempt the block factorization; models/inputs without
             # one (or with restrictions the factored builders cannot
-            # serve) fall back to the flat gather path LOUDLY — on TPU
-            # that degradation is a measured 34-1171x matvec cliff
+            # serve) fall back to the flat gather path LOUDLY
             ham_f = self._factored_hamiltonian(
                 self.parts, self.basis, warn=self._warn_fallback)
             if ham_f is not None:
                 self._factored = True
                 self._ham_cache = {self.parts: ham_f}
         use_factored = self._factored
-        with self.progress.phase(
-                f"diagonalization dim={self.basis.size}"):
+        if not (use_symmetry or use_factored):
+            with self.progress.phase("hamiltonian"):
+                ham = self.hamiltonian
+        with self.progress.phase("diagonalization",
+                                 f"dim={self.basis.size}"):
             if use_symmetry:
                 self._solve_with_symmetry(inp, nstates)
             elif use_factored:
                 self._solve_factored(nstates)
             else:
                 self._energies, self._vectors, info = lz.lowest_states(
-                    self.hamiltonian, num_states=nstates,
+                    ham, num_states=nstates,
                     seed=self.config.seed,
                     max_steps=self.config.lanczos_steps,
                     return_info=True)
@@ -117,27 +117,20 @@ class Engine:
         if self._flat_ham is None:
             self._flat_ham = self.model.hamiltonian(
                 self.basis, dtype=self.config.scalar_dtype)
-            # on accelerators, materialize spin-separable Kronecker
-            # factors as dense one-spin matrices so the Lanczos hot
-            # loop runs as MXU GEMMs (CPU keeps the gather form: dense
-            # size^2 matmuls don't pay off there and tests run f64)
-            import jax
-            if jax.default_backend() != "cpu":
-                self._flat_ham = self._flat_ham.densify_factors()
         return self._flat_ham
 
     def _solve_factored(self, nstates):
         """Heisenberg (any S) / Kitaev / Rashba / t-J / FeAs-SO via the
-        half-cut block factorization (SolverOptions=factored): every
-        hot op is an MXU matmul and the flat ELL is never materialized
-        for the solve."""
+        half-cut block factorization (SolverOptions=factored): the hot
+        ops are dense GEMMs and the flat ELL is never materialized for
+        the solve."""
         ham = self._cached_hamiltonian(self.parts)
         evals, vecs, info = lz.lowest_states(
             ham, num_states=nstates, seed=self.config.seed,
             max_steps=self.config.lanczos_steps, return_info=True)
         self._log_solve(info)
         self._energies = evals
-        self._vectors = [_to_host(v) for v in vecs]
+        self._vectors = [np.asarray(v) for v in vecs]
 
     def _factored_hamiltonian(self, parts, basis, warn=None):
         """Flat-ordered block-factorized Hamiltonian or None: Sz-blocked
@@ -166,10 +159,9 @@ class Engine:
         """Sector scan keeping the lowest states (reference:
         Engine.h:601-657 computeAllStatesBelow over symmetry sectors).
 
-        Each k-block gets the same dispatch honesty as the flat path:
-        densified Kronecker factors on accelerators, and the winning
-        block's SolveInfo is logged/exposed (a silently unconverged or
-        dense-fallback block solve previously reported nothing)."""
+        The winning block's SolveInfo is logged/exposed (a silently
+        unconverged or dense-fallback block solve previously reported
+        nothing)."""
         from lanczosplusplus_tpu.symmetry import build_symmetry
 
         if self._try_projected_translation(inp, nstates):
@@ -177,15 +169,11 @@ class Engine:
         fermionic = getattr(self.model, "is_fermionic", True)
         sym = build_symmetry(inp, self.basis, self.model.geometry,
                              self.model, fermionic=fermionic)
-        import jax
-        densify = jax.default_backend() != "cpu"
         best = None
         for s in range(sym.sectors()):
             ham_s = sym.block_hamiltonian(s)
             if ham_s is None or ham_s.dim == 0:
                 continue
-            if densify and hasattr(ham_s, "densify_factors"):
-                ham_s = ham_s.densify_factors()
             evals, vecs, info = lz.lowest_states(
                 ham_s, num_states=min(nstates, ham_s.dim),
                 seed=self.config.seed,
@@ -202,28 +190,22 @@ class Engine:
         self._log_solve(info)
         self.solve_sector = sector
         self._energies = evals
-        self._vectors = [sym.transform(_to_host(v), sector)
+        self._vectors = [sym.transform(np.asarray(v), sector)
                          for v in vecs]
 
     def _try_projected_translation(self, inp, nstates) -> bool:
         """Momentum sectors via projected Lanczos in the FULL space
-        (symmetry/projected.py) when the basis index is the bit word
-        and translation is the +1 cyclic site shift (Kitaev chain):
-        on accelerators the assembled k-blocks are random-column ELLs
-        — the measured gather cliff — while the projector is pure
+        (symmetry/projected.py) when SolverOptions=projected asks for
+        it, the basis index is the bit word and translation is the +1
+        cyclic site shift (Kitaev chain): the projector is pure
         reshape-transposes, so each sector solves at factored-matvec
-        speed.  Returns False (→ orbit-block path) when out of scope.
-        CPU runs keep the block path unless SolverOptions=projected
-        asks for this one (the blocks are fast on CPU and are the
-        reference-shaped algorithm)."""
-        import jax
-
+        speed.  Returns False (→ the assembled orbit-block path, the
+        reference-shaped algorithm) when not asked or out of scope."""
+        if "projected" not in inp.solver_options():
+            return False
         if inp.integer("UseTranslationSymmetry", default=0) != 1:
             return False
         if inp.integer("UseReflectionSymmetry", default=0):
-            return False
-        if jax.default_backend() == "cpu" \
-                and "projected" not in inp.solver_options():
             return False
         if type(self.model).__name__ != "KitaevModel":
             return False
@@ -268,7 +250,7 @@ class Engine:
             f"projected translation: min-k sector k={self.solve_sector}"
             f" purity={self.projected_purity:.6f}")
         self._energies = evals
-        self._vectors = [_to_host(v) for v in vecs]
+        self._vectors = [np.asarray(v) for v in vecs]
         return True
 
     def energies(self, i: int = 0) -> float:
@@ -307,7 +289,7 @@ class Engine:
         return self._ham_cache[parts]
 
     def _cached_dense_hamiltonian(self, parts):
-        """Dense-factor (MXU GEMM) form of a sector Hamiltonian for
+        """Dense-factor (GEMM) form of a sector Hamiltonian for
         batched recurrences: the index-gather SpMM path materializes a
         (R, dim)-sized intermediate per hop factor, which blows HBM at
         large dims x batch; the densified Kronecker factors make each
@@ -365,7 +347,7 @@ class Engine:
         (reference: Engine.h:133-206 spectralFunction)."""
         op1 = LabeledOperator(op_name)
         op2 = op1.transpose_conjugate()
-        gs = _to_host(self.eigenvector(0))
+        gs = np.asarray(self.eigenvector(0))
         is_diagonal = (isite == jsite and orbs[0] == orbs[1])
         coll = ContinuedFractionCollection()
         labels = []
@@ -420,7 +402,7 @@ class Engine:
 
         op1 = LabeledOperator(op_name)
         op2 = op1.transpose_conjugate()
-        gs = _to_host(self.eigenvector(0))
+        gs = np.asarray(self.eigenvector(0))
         steps = self.inp.integer("SpectralSteps",
                                  default=self.config.lanczos_steps)
         x64 = jax.config.read("jax_enable_x64")
@@ -482,7 +464,7 @@ class Engine:
                     if zj is not None:
                         row = isign * zj if row is None else \
                             row + isign * zj
-                rows.append(_zeros(basis_new.size, fleet_dtype)
+                rows.append(jnp.zeros(basis_new.size, fleet_dtype)
                             if row is None else row)
             M = jnp.stack(rows)
             weights = np.asarray(
@@ -547,13 +529,14 @@ class Engine:
             return ContinuedFraction(
                 alphas=np.zeros(0), betas=np.zeros(0),
                 e0=self.ground_energy, weight=0.0, sigma=s)
-        v0 = _to_device(modif / np.sqrt(weight))
+        v0 = jnp.asarray(modif / np.sqrt(weight))
         # the reference reads a separate "Spectral" solver section
         # (Engine.h:472 ParametersForSolver(io, "Spectral"))
         steps = self.inp.integer("SpectralSteps",
                                  default=self.config.lanczos_steps)
         itemsize = np.dtype(ham_new.dtype).itemsize
-        if min(ham_new.dim, steps) * ham_new.dim * itemsize > (6 << 30):
+        if (min(ham_new.dim, steps) * ham_new.dim * itemsize
+                > lz.default_krylov_budget_bytes()):
             # huge sector: the CF needs only (alpha, beta)
             res = lz.tridiagonalize_plain(ham_new, v0, steps)
         else:
@@ -577,7 +560,7 @@ class Engine:
 
         op1 = LabeledOperator(op_name)
         op2 = op1.transpose_conjugate()
-        gs = _to_host(self.eigenvector(0))
+        gs = np.asarray(self.eigenvector(0))
         omegas = np.asarray(omegas, dtype=np.float64)
         total = np.zeros_like(omegas)
         for type_ in range(2):
@@ -655,7 +638,7 @@ class Engine:
             def apply(v, _op=op, _basis=basis_new):
                 z = np.zeros(_basis.size,
                              dtype=np.result_type(v.dtype, np.float64))
-                self.acc_modified_state(z, _op, _basis, _to_host(v),
+                self.acc_modified_state(z, _op, _basis, np.asarray(v),
                                         self.basis, isite, spin, orb, 1.0)
                 return z
 
@@ -726,7 +709,7 @@ class Engine:
                     z = np.zeros(self.basis.size,
                                  dtype=np.result_type(v.dtype,
                                                       np.float64))
-                    src = _to_host(v)
+                    src = np.asarray(v)
                     for site in range(nsite):
                         if abs(_w[site]) < 1e-14:
                             continue
@@ -807,7 +790,7 @@ class Engine:
                     jnp.asarray(np.concatenate(rows_l)),
                     jnp.asarray(np.concatenate(tgt_l)),
                     jnp.asarray(np.concatenate(src_l)),
-                    _to_device(np.concatenate(amp_l)))
+                    jnp.asarray(np.concatenate(amp_l)))
         self._scatter_plan_cache[key] = plan
         return plan
 
@@ -829,9 +812,9 @@ class Engine:
         if plan is None:
             return [], None
         valid, rows, tgts, src_idx, amps = plan
-        v_dev = _to_device(_to_host(vec).astype(dtype))
+        v_dev = jnp.asarray(np.asarray(vec).astype(dtype))
         contribs = amps * v_dev[src_idx]
-        Z = _zeros((len(valid), dst_basis.size), dtype)
+        Z = jnp.zeros((len(valid), dst_basis.size), dtype)
         Z = Z.at[rows, tgts].add(contribs)
         return valid, Z
 
@@ -840,7 +823,7 @@ class Engine:
         """C(i, j) = <bra| op^dag_j op_i |ket> for all site pairs.
 
         All modified states build as one batched device scatter and the
-        full pair matrix is ONE GEMM <Z_bra | Z_ket^T> on the MXU
+        full pair matrix is ONE GEMM <Z_bra | Z_ket^T>
         (reference: Engine.h:266-338 loops pairs serially)."""
         op = LabeledOperator(op_name)
         n = self.geometry.number_of_sites()
@@ -855,8 +838,8 @@ class Engine:
             basis_new = self._cached_basis(new_parts)
         else:
             basis_new = self.basis
-        bra = _to_host(self.eigenvector(bra_ket[0]))
-        ket = _to_host(self.eigenvector(bra_ket[1]))
+        bra = np.asarray(self.eigenvector(bra_ket[0]))
+        ket = np.asarray(self.eigenvector(bra_ket[1]))
         valid_i, Z_ket = self._batched_modified_states(
             op, basis_new, ket, spin[0], orbs[0])
         if (bra_ket[0] == bra_ket[1] and spin[0] == spin[1]
@@ -870,13 +853,10 @@ class Engine:
             return result
         # result[i, j] = <z_bra_j | z_ket_i>
         import jax
-        # pin HIGHEST matmul precision: the TPU default lowers f32
-        # matmuls to bf16 passes (~3e-4 absolute error on these O(1)
-        # overlaps); the pair matrix is tiny, 3-pass cost is nothing
-        block = _to_host(jax.lax.dot_general(
+        block = np.asarray(jax.lax.dot_general(
             Z_ket, jnp.conj(Z_bra),
             dimension_numbers=(((1,), (1,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST))
+            precision=matmul_precision()))
         for a, isite in enumerate(valid_i):
             for b, jsite in enumerate(valid_j):
                 result[isite, jsite] = block[a, b]
@@ -885,7 +865,7 @@ class Engine:
     # -- many-point fixed-site correlator (reference: Engine.h:341-389) ---
 
     def many_point(self, sites, op_names, spins, orbs, bra_ket=(0, 0)):
-        tmp = _to_host(self.eigenvector(bra_ket[1]))
+        tmp = np.asarray(self.eigenvector(bra_ket[1]))
         basis_old = self.basis
         old_parts = self.parts
         for k, site in enumerate(sites):
@@ -904,7 +884,7 @@ class Engine:
             old_parts = new_parts
         if old_parts != self.parts:
             return 0.0
-        bra = _to_host(self.eigenvector(bra_ket[0]))
+        bra = np.asarray(self.eigenvector(bra_ket[0]))
         return complex(np.vdot(bra, tmp))
 
     # -- measure mini-language (reference: Engine.h:208-249) --------------
@@ -925,9 +905,9 @@ class Engine:
             op, site = rahul.parse_op_token(t)
             ops.append(op)
             sites.append(site)
-        ket = _to_host(self.eigenvector(ket_idx))
+        ket = np.asarray(self.eigenvector(ket_idx))
         psi_new = rahul.rahul_apply(self.basis, ops, sites, ket)
-        bra = _to_host(self.eigenvector(bra_idx))
+        bra = np.asarray(self.eigenvector(bra_idx))
         return complex(np.vdot(bra, psi_new))
 
     @property

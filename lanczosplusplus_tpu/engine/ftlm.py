@@ -17,10 +17,10 @@ every Krylov vector against the precomputed y_r = A|r> — both available
 from the memory-light three-term recurrence with O(2 vectors) storage.
 No Krylov basis is ever materialized.
 
-TPU-native shape: the R random vectors run as ONE batched recurrence —
+Device shape: the R random vectors run as ONE batched recurrence —
 each Lanczos step is a single batched SpMM (`Hamiltonian.matmat`,
-dense Kronecker factors on the MXU) over the (dim, R) block, plus
-per-column axpy/dots on the VPU.  Everything is one `lax.scan` with
+dense Kronecker factors as GEMMs) over the (dim, R) block, plus
+per-column axpy/dots.  Everything is one `lax.scan` with
 static shapes; the tiny (M, R) tridiagonals are eigensolved on host.
 """
 
@@ -35,14 +35,14 @@ import jax
 import jax.numpy as jnp
 
 from lanczosplusplus_tpu.solver.lanczos import tridiag_eigh
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 @partial(jax.jit, static_argnums=(3,))
 def _ftlm_recurrence(ham, V0, Yops, steps):
     """Batched plain Lanczos over the ROWS of V0 (R, dim) — the
     batch-major layout keeps the factor contractions of the batched
-    SpMM (`Hamiltonian.matmat_t`) as clean MXU GEMMs (1.7-3.3x over
-    the column layout on chip).
+    SpMM (`Hamiltonian.matmat_t`) as clean GEMMs without transposes.
 
     Returns per-step (alphas, betas) of shape (M, R) and the Krylov
     dots D[m, o, r] = <v_m | Yops[o, r, :]> needed for operator
@@ -63,7 +63,8 @@ def _ftlm_recurrence(ham, V0, Yops, steps):
         safe = jnp.where(beta > 0, beta, 1.0).astype(W.dtype)
         V_next = jnp.where((beta > 0)[:, None], W / safe[:, None],
                            jnp.zeros_like(W))
-        dots = jnp.einsum("rd,ord->or", jnp.conj(V), Yops)
+        dots = jnp.einsum("rd,ord->or", jnp.conj(V), Yops,
+                          precision=matmul_precision())
         return (V_next, V, beta), (alpha, beta, dots)
 
     init = (V0, jnp.zeros_like(V0), jnp.zeros((V0.shape[0],), rdt))
@@ -113,8 +114,8 @@ def ftlm(ham, beta_grid, num_vectors: int = 32, steps: int = 80,
             not (hasattr(op, "matmat") or hasattr(op, "matmat_t"))
             for op in operators.values()):
         # PermutedHamiltonian: traces are basis-independent and the
-        # flat wrap's whole-dim perm gather is catastrophic per step
-        # on TPU — run in the inner (block) layout, permuting any
+        # flat wrap would add a whole-dim perm gather per step — run
+        # in the inner (block) layout, permuting any
         # diagonal operators (sign^2 = 1 cancels in the sandwich).
         # Caller-provided start vectors are in flat order: convert.
         perm = np.asarray(ham.perm)
@@ -227,7 +228,7 @@ def ltlm(ham, beta_grid, operators: Dict[str, object],
     low temperature), the symmetric form converges to <gs|A|gs>
     exactly as beta -> inf for every start vector.  Costs a stored-V
     Lanczos run per vector plus one (M, dim)x(dim, M) GEMM per
-    operator (MXU).  Operators: (dim,) diagonal arrays or objects with
+    operator (a GEMM).  Operators: (dim,) diagonal arrays or objects with
     matmat/matmat_t, sector-preserving.  `trace_dim` is the true
     Hilbert dimension when ham is padded for a device mesh (same
     convention as `ftlm`).  Returns {name: (T,) array}, plus '_log_z'
@@ -263,7 +264,8 @@ def ltlm(ham, beta_grid, operators: Dict[str, object],
             else:
                 diag = jnp.asarray(op, dtype=dtype)
                 Y = (diag[:, None] * Vm.T)
-            G = np.asarray(jnp.conj(Vm) @ Y)               # (m, m)
+            G = np.asarray(jnp.matmul(jnp.conj(Vm), Y,
+                                       precision=matmul_precision()))
             ritz[name] = evecs.T @ G @ evecs
         per_run.append((evals, evecs[0].copy(), ritz))
     T = beta_grid.shape[0]
@@ -339,14 +341,14 @@ def ltlm_schedule(model, inp, num_vectors: int = 16, steps: int = 80,
     plain FTLM energy estimator decorrelates, so the low-temperature
     tail of the `ed` curve is exact instead of O(1/sqrt(R))-noisy.
     Costs one stored-V Lanczos run per random vector plus one
-    (M, dim)x(dim, M) MXU GEMM (the H projection)."""
+    (M, dim)x(dim, M) GEMM (the H projection)."""
     tbs, beta_grid = _schedule_grid(inp)
     ham = _schedule_ham(model, inp)
     if hasattr(ham, "inner") and hasattr(ham, "perm"):
         # traces are basis-independent: run the recurrence and the H
-        # projection in the block layout; the PermutedHamiltonian
-        # wrap's whole-dim perm gather per matvec is catastrophic on
-        # TPU (mirrors ftlm() / GrandCanonicalFTLM)
+        # projection in the block layout, without the
+        # PermutedHamiltonian wrap's whole-dim perm gather per matvec
+        # (mirrors ftlm() / GrandCanonicalFTLM)
         ham = ham.inner
     res = ltlm(ham, beta_grid, {"energy": ham},
                num_vectors=num_vectors, steps=steps, seed=seed)

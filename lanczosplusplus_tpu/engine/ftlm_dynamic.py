@@ -14,7 +14,7 @@ Lanczos runs per random vector:
 with |psi_j> the Ritz vectors of the run from |r> (source sector) and
 |phi_l> those of the run from B|r> (destination sector).  The cross
 matrix <psi_j|A^+|phi_l> is one (M, dim)x(dim, M') GEMM through the
-operator-applied Krylov block — MXU work — and everything else is the
+operator-applied Krylov block and everything else is the
 tiny tridiagonal eigendata.
 
 Exactness property used by the tests: with a complete orthonormal start

@@ -8,7 +8,7 @@ KPM (Weisse, Wellein, Alvermann & Fehske, RMP 78, 275 (2006)) expands
 
 in Chebyshev polynomials of the rescaled Hamiltonian.  The recurrence
 |t_{k+1}> = 2 Ht |t_k> - |t_{k-1}> is pure SpMV with O(2 vectors)
-memory and NO reorthogonalization — on TPU every step is the same
+memory and NO reorthogonalization — every step is the same
 static-shape fused kernel, and the product-rule doubling
 (mu_{2k} = 2<t_k|t_k> - mu_0, mu_{2k+1} = 2<t_{k+1}|t_k> - mu_1)
 halves the matvec count.  Jackson damping turns the truncated series
@@ -17,7 +17,7 @@ poles, unlike plain-Lanczos continued fractions at large depth.
 
 Total densities of states use the stochastic trace over a batch of
 random vectors: the recurrence then runs on a (dim, R) block so each
-step is one batched SpMM (`Hamiltonian.matmat`) feeding the MXU.
+step is one batched SpMM (`Hamiltonian.matmat`) of GEMMs.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def _moment_recurrence(ham, phi0, a, b, num_pairs):
     (num_pairs, R): mu_even[k] = mu_{2k}, mu_odd[k] = mu_{2k+1},
     via the product-rule doubling (one matvec per moment PAIR).  The
     row layout keeps the batched SpMM (`Hamiltonian.matmat_t`) on
-    clean MXU GEMMs."""
+    clean GEMMs."""
     from lanczosplusplus_tpu.core.sparse import apply_block_t
 
     ainv = jnp.asarray(1.0, phi0.dtype) / a.astype(phi0.dtype)
@@ -158,7 +158,7 @@ def kpm_dos(ham, num_moments: int = 256, num_vectors: int = 16,
 
     if hasattr(ham, "inner") and hasattr(ham, "perm"):
         # trace is basis-independent: skip the flat wrap's per-step
-        # whole-dim perm gather (catastrophic on TPU)
+        # whole-dim perm gather
         ham = ham.inner
     V0 = random_start_block(ham.dim, num_vectors, seed, ham.dtype)
     res = chebyshev_moments(ham, V0, num_moments, bounds=bounds)

@@ -5,9 +5,9 @@ sum_beta conj(psi(alpha, beta)) psi(alpha', beta) for a split at site s
 (26-131), with model-specific index unpacking (Heisenberg: one word;
 Hubbard/FeAs: two spin words, 78-123).
 
-TPU design: instead of the reference's O(dim^2) double loop, psi is
+Device design: instead of the reference's O(dim^2) double loop, psi is
 scattered into a dense (dimA, dimB) matrix M on device and
-rho = conj(M) @ M.T runs on the MXU; eigh gives the entanglement
+rho = conj(M) @ M.T runs as one GEMM; eigh gives the entanglement
 spectrum.
 """
 
@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
+
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 def _unpack_keys(basis, split: int):
@@ -58,7 +60,8 @@ class ReducedDensityMatrix:
         psi = jnp.asarray(psi)
         m = jnp.zeros((dima, dimb), dtype=psi.dtype)
         m = m.at[jnp.asarray(a), jnp.asarray(b)].add(psi)
-        self.rho = np.asarray(jnp.conj(m) @ m.T)
+        self.rho = np.asarray(jnp.matmul(jnp.conj(m), m.T,
+                                         precision=matmul_precision()))
         self.eigs, self.vectors = np.linalg.eigh(self.rho)
 
     def entanglement_entropy(self) -> float:

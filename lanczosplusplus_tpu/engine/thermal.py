@@ -14,7 +14,7 @@ Two capabilities from the reference:
 
 The reference splits this across dumpmatrix runs, a Perl driver and a
 separate binary; here it is one in-process pipeline with device `eigh`
-per sector and MXU matmuls for the operator rotations.
+per sector and matmuls for the operator rotations.
 """
 
 from __future__ import annotations
@@ -189,7 +189,7 @@ class GrandCanonical:
             b = a if sites[1] == sites[0] else operator_matrix(
                 self.model, op_name, sites[1], spin, 0, src_basis,
                 dst_basis)
-            # X_{n,n'} = U_src^dag A U_dst  (MXU matmuls)
+            # X_{n,n'} = U_src^dag A U_dst
             x = s.evecs.conj().T @ a @ dst.evecs
             y = s.evecs.conj().T @ b @ dst.evecs
             val = x * np.conj(y) * (w / z)[:, None]

@@ -113,7 +113,7 @@ class InputData:
         "printmatrix", "dumpmatrix", "setAffinities",
         # seen in TestSuite inputs
         "MatrixVectorStored", "twositedmrg", "fixLegacyBugs",
-        # tpu-native extensions
+        # extensions of this engine
         "useComplex", "factored", "reortho", "serialgf",
         "ftlm", "ltlm", "bf16cross", "projected",
     }

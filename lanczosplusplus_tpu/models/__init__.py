@@ -13,7 +13,7 @@ def factored_hamiltonian_or_none(model, basis, parts, dtype, warn=None,
     None too, so every caller keeps its flat-path fallback.  `warn` is
     an optional callable(str): invoked with the reason whenever the
     factored form is unavailable, so SolverOptions=factored never
-    degrades to the 34-1171x-slower gather path silently."""
+    degrades to the flat gather path silently."""
     name = type(model).__name__
     try:
         if name == "KitaevModel":
@@ -28,9 +28,8 @@ def factored_hamiltonian_or_none(model, basis, parts, dtype, warn=None,
                                            dtype=dtype)
             return fact.flat_ham(basis)
         if name == "RashbaSOCModel":
-            # spatial half-cut: within-half Rashba flips run as MXU
-            # GEMMs; only cut-crossing bonds stay gather-typed (5x the
-            # (nup, ndown) block-Kronecker form on the 13-site bench)
+            # spatial half-cut: within-half Rashba flips run as
+            # GEMMs; only cut-crossing bonds stay gather-typed
             from lanczosplusplus_tpu.models.rashba_halfcut import \
                 build_halfcut_rashba
             return build_halfcut_rashba(model, basis, dtype=dtype,
@@ -47,8 +46,8 @@ def factored_hamiltonian_or_none(model, basis, parts, dtype, warn=None,
         if name == "FeBasedScModel":
             # single-block BlockKron: dense one-spin hop GEMMs + exact
             # (dn ⊗ up) channels for the interaction remainder (the
-            # flat ELL's whole-dim gathers are the catastrophic layout
-            # on TPU).  Dense one-spin operators cap the reachable
+            # flat ELL's whole-dim gathers are avoided).  Dense
+            # one-spin operators cap the reachable
             # sector size; past the cap the flat path stays the answer
             szu, szd = basis.up.size, basis.down.size
             if szu * szu + szd * szd > (1 << 26):

@@ -34,7 +34,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -453,7 +452,7 @@ class FeBasedScModel:
 
         # hopping is spin-conserving: keep it as one-spin Kronecker
         # factors (I (x) A_up + A_dn (x) I) applied as batched gathers /
-        # MXU GEMMs after densify_factors() — index memory O(size_spin)
+        # GEMMs after densify_factors() — index memory O(size_spin)
         # instead of the O(dim) broadcast the flat ELL would need
         # (reference builds the full CRS: FeBasedSc.h setupHamiltonian)
         ku = max(len(hop_pairs), 1)
@@ -556,21 +555,21 @@ class FeBasedScModel:
         if k > 0:
             ell = EllPart(cols=jnp.asarray(cols3.reshape(dim, k)
                                            .astype(np.int32)),
-                          vals=_to_device(vals3.reshape(dim, k)))
+                          vals=jnp.asarray(vals3.reshape(dim, k)))
         from lanczosplusplus_tpu.core.sparse import SpinFactorizedPart
         factorized = SpinFactorizedPart(
             up_cols=jnp.asarray(up_cols.astype(np.int32)),
-            up_vals=_to_device(up_vals),
+            up_vals=jnp.asarray(up_vals),
             dn_cols=jnp.asarray(dn_cols.astype(np.int32)),
-            dn_vals=_to_device(dn_vals))
+            dn_vals=jnp.asarray(dn_vals))
         return Hamiltonian(
-            diag=_to_device(self.diagonal(basis).astype(dtype)),
+            diag=jnp.asarray(self.diagonal(basis).astype(dtype)),
             ell=ell, factorized=factorized, spin_shape=(szd, szu))
 
     def block_kron_hamiltonian(self, basis: FeAsBasis,
                                dtype=np.float64):
         """Single-block BlockKron form of the sector Hamiltonian: the
-        spin-conserving hops as DENSE one-spin operators (two MXU
+        spin-conserving hops as DENSE one-spin operators (two
         GEMMs on the (size_down, size_up) state block) and every
         interaction-remainder slot — U2 transverse, U3 pair hopping,
         cross-site J_PM, the INT_IMPURITY/INT_KSPACE quartic moves —
@@ -728,9 +727,9 @@ class FeBasedScModel:
                 row_src, row_amp, col_src, col_amp, 0, 0, dtype))
         diag2 = np.asarray(self.diagonal(basis)).reshape(szd, szu)
         return BlockKronHamiltonian(
-            diag=(_to_device(diag2.astype(dtype)),),
-            row_ops=(_to_device(h_dn.astype(dtype)),),
-            col_ops=(_to_device(h_up.astype(dtype)),),
+            diag=(jnp.asarray(diag2.astype(dtype)),),
+            row_ops=(jnp.asarray(h_dn.astype(dtype)),),
+            col_ops=(jnp.asarray(h_up.astype(dtype)),),
             cross=(), shapes=((szd, szu),),
             perm_cross=tuple(perm_cross))
 

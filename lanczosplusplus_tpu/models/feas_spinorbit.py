@@ -20,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -269,8 +268,8 @@ class FeAsSpinOrbitModel(FeBasedScModel):
             slot += 1
 
         ell = EllPart(cols=jnp.asarray(cols.astype(np.int32)),
-                      vals=_to_device(vals))
-        return Hamiltonian(diag=_to_device(diag.astype(dtype)),
+                      vals=jnp.asarray(vals))
+        return Hamiltonian(diag=jnp.asarray(diag.astype(dtype)),
                            ell=ell, factorized=None, spin_shape=None)
 
     def operator_map(self, op, site, spin, orb, src_basis, dst_basis):

@@ -5,7 +5,7 @@ src/Models/FeBasedSc/BasisFeAsSpinOrbit.h:48-71) is a direct sum of
 (nu, nd) product blocks, so every term of the flat gather-ELL
 Hamiltonian (models/feas_spinorbit.py) factorizes:
 
-- same-spin hoppings: dense per-block one-spin operators -> MXU GEMMs;
+- same-spin hoppings: dense per-block one-spin operators -> GEMMs;
 - the Kanamori diagonal (U0/U1/U4/U5 + potentials + SO diagonal +
   AnisotropyD): per-block dense tables from quadratic forms of the
   occupation tables;
@@ -21,9 +21,8 @@ Hamiltonian (models/feas_spinorbit.py) factorizes:
 Element rules mirror the flat path exactly (same masks/signs,
 evaluated on the ket = destination row, matching the ELL row
 convention) and are validated by to_dense equality in
-tests/test_feas_spinorbit.py.  On TPU the flat whole-dim random
-gather is catastrophic (see BASELINE.md round-2 factored-vs-flat
-measurements), making this the production form.
+tests/test_feas_spinorbit.py.  It replaces the flat path's whole-dim
+random gather with per-block GEMMs and 2-D row/column gathers.
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -148,13 +146,13 @@ def build_factored_feas_spinorbit(model, basis, dtype=np.complex128):
         quad_d = np.einsum("sa,ab,sb->s", nd_t, w_dd, nd_t)
         d2 = quad_u[:, None] + quad_d[None, :] + nu_t @ w_ud @ nd_t.T
         d2 = d2 + (nu_t @ lin_u)[:, None] + (nd_t @ lin_d)[None, :]
-        diags.append(_to_device(d2.astype(dtype)))
+        diags.append(jnp.asarray(d2.astype(dtype)))
         for side, one in (("u", up), ("d", dn)):
             key = one.npart
             if key not in hop_cache:
                 hop_cache[key] = hop_dense(one)
-        row_ops.append(_to_device(hop_cache[up.npart].astype(dtype)))
-        col_ops.append(_to_device(hop_cache[dn.npart].astype(dtype)))
+        row_ops.append(jnp.asarray(hop_cache[up.npart].astype(dtype)))
+        col_ops.append(jnp.asarray(hop_cache[dn.npart].astype(dtype)))
 
     perm_cross = []
 

@@ -18,7 +18,7 @@ sqrt(S(S+1)-m_i(m_i+1)) * sqrt(S(S+1)-m_j(m_j-1)).  Both agree for
 S = 1/2 and S = 1 (every raise amplitude is m-independent there),
 which covers all reference test inputs.
 
-TPU design: the basis is a sorted word array (rank = searchsorted,
+Design: the basis is a sorted word array (rank = searchsorted,
 replacing the reference's linear-scan perfectIndex,
 BasisHeisenberg.h:73-80); the Hamiltonian is diagonal + one generic ELL
 block with one slot per ordered coupled site pair.
@@ -29,7 +29,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core.sparse import EllPart, Hamiltonian
 from lanczosplusplus_tpu.core.bits import WORD
@@ -194,8 +193,8 @@ class HeisenbergModel:
             cols[:, kk] = tgt
             vals[:, kk] = np.where(ok, amp, 0).astype(dtype)
         ell = EllPart(cols=jnp.asarray(cols.astype(np.int32)),
-                      vals=_to_device(vals))
-        return Hamiltonian(diag=_to_device(self.diagonal(basis).astype(dtype)),
+                      vals=jnp.asarray(vals))
+        return Hamiltonian(diag=jnp.asarray(self.diagonal(basis).astype(dtype)),
                            ell=ell, factorized=None, spin_shape=None)
 
     # -- operator maps ----------------------------------------------------

@@ -10,7 +10,7 @@ left digit-sum a:
 
     H = sum_a [ H_L(a) (x) I + I (x) H_R(M-a) ]  (within-half terms,
                                                   dense half matrices
-                                                  on the MXU)
+                                                  as GEMMs)
       + cross bonds (i in L, j in R):
           Jzz sz_i (x) sz_j        (rank-1 diagonal, folded into the
                                     per-block diag table)

@@ -13,7 +13,7 @@ Hamiltonian (reference HubbardHelper.h:138-343):
 - Heisenberg J: 0.5 sum_ij J_ij Sz_i Sz_j + (J_ij/2)(S+_i S-_j + h.c.)
   with fermionic pair signs                          (Super, term 2)
 
-TPU design: hopping is spin-separable -> Kronecker-factorized axis
+Design: hopping is spin-separable -> Kronecker-factorized axis
 gathers; U/V/W/SzSz are a closed-form diagonal from occupation-table
 quadratic forms; S+S- couples both spin words -> generic ELL part.
 """
@@ -23,7 +23,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.basis import HubbardBasis
@@ -318,10 +317,10 @@ class HubbardModel:
             j_ell = self._j_offdiagonal_coo(basis, dtype)
             if j_ell is not None:
                 ell = EllPart(cols=jnp.asarray(j_ell[0]),
-                              vals=_to_device(j_ell[1]))
+                              vals=jnp.asarray(j_ell[1]))
         fact = SpinFactorizedPart(
-            up_cols=jnp.asarray(up_cols), up_vals=_to_device(up_vals),
-            dn_cols=jnp.asarray(dn_cols), dn_vals=_to_device(dn_vals))
+            up_cols=jnp.asarray(up_cols), up_vals=jnp.asarray(up_vals),
+            dn_cols=jnp.asarray(dn_cols), dn_vals=jnp.asarray(dn_vals))
         return Hamiltonian(
-            diag=_to_device(self.diagonal(basis).astype(dtype)),
+            diag=jnp.asarray(self.diagonal(basis).astype(dtype)),
             ell=ell, factorized=fact, spin_shape=basis.spin_shape)

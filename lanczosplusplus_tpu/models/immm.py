@@ -20,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -215,11 +214,11 @@ class ImmmModel:
         from lanczosplusplus_tpu.core.sparse import SpinFactorizedPart
         factorized = SpinFactorizedPart(
             up_cols=jnp.asarray(up_cols.astype(np.int32)),
-            up_vals=_to_device(up_vals),
+            up_vals=jnp.asarray(up_vals),
             dn_cols=jnp.asarray(dn_cols.astype(np.int32)),
-            dn_vals=_to_device(dn_vals))
+            dn_vals=jnp.asarray(dn_vals))
         return Hamiltonian(
-            diag=_to_device(self.diagonal(basis).astype(dtype)),
+            diag=jnp.asarray(self.diagonal(basis).astype(dtype)),
             ell=None, factorized=factorized, spin_shape=(szd, szu))
 
     def operator_map(self, op, site, spin, orb, src_basis: ImmmBasis,

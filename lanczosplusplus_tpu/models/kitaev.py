@@ -24,7 +24,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -128,7 +127,7 @@ class KitaevModel:
             vals[:, slot] = np.where(ok, self.jpp[i, j], 0).astype(dtype)
             slot += 1
         ell = EllPart(cols=jnp.asarray(cols.astype(np.int32)),
-                      vals=_to_device(vals))
+                      vals=jnp.asarray(vals))
         return Hamiltonian(
-            diag=_to_device(self.diagonal(basis).astype(dtype)),
+            diag=jnp.asarray(self.diagonal(basis).astype(dtype)),
             ell=ell, factorized=None, spin_shape=None)

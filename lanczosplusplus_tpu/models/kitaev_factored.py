@@ -1,5 +1,5 @@
 """Block-factorized Kitaev solver: the full 2^n space as a Kronecker
-product of two half-chains, so every hot op is an MXU matmul.
+product of two half-chains, so every hot op is a dense matmul.
 
 The Kitaev model conserves nothing (reference: BasisKitaev.h:28-34 uses
 the identity basis over 2^n words), so the state vector reshapes
@@ -19,7 +19,7 @@ losslessly into a (2^nL, 2^nR) matrix over a left/right site cut
 No fermion signs (spins commute), no sector bookkeeping — this is the
 simplest possible instance of the half-cut factorization used for the
 Sz-blocked Heisenberg solver (models/heisenberg_factored.py) and it
-replaces the gather-ELL SpMV (memory-bound) with pure MXU work.
+replaces the gather-ELL SpMV (memory-bound) with pure GEMM work.
 Selected by SolverOptions=factored (same flag as Heisenberg).
 """
 
@@ -34,6 +34,7 @@ import jax.numpy as jnp
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.sparse import _downcast_state
 from lanczosplusplus_tpu.core.bits import WORD
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 def _half_offdiag(m: int, pairs_pm, pairs_pp, jpm, jpp,
@@ -96,22 +97,26 @@ class FactoredKitaevHamiltonian:
         xm = x.reshape(dl, dr)
         y = self.diag2d * xm
         # factors may be stored in bfloat16 (FLOP-bound workload:
-        # native-bf16 MXU with f32 accumulation) — cast the state tile
+        # native-bf16 GEMMs with f32 accumulation) — cast the state tile
         # down, accumulate in the compute dtype
         xc = _downcast_state(xm, self.hl.dtype)
         y = y + jax.lax.dot_general(
             self.hl, xc, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=x.dtype)
+            preferred_element_type=x.dtype,
+            precision=matmul_precision())
         y = y + jax.lax.dot_general(
             xc, self.hr_t, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=x.dtype)
+            preferred_element_type=x.dtype,
+            precision=matmul_precision())
         if self.p.shape[0]:
             # sum_k P_k X Q_k^T
             px = jnp.einsum("kab,bd->kad", self.p, xc,
-                            preferred_element_type=x.dtype)
+                            preferred_element_type=x.dtype,
+                            precision=matmul_precision())
             y = y + jnp.einsum("kad,kcd->ac",
                                _downcast_state(px, self.q.dtype), self.q,
-                               preferred_element_type=x.dtype)
+                               preferred_element_type=x.dtype,
+                               precision=matmul_precision())
         return y.reshape(-1)
 
     def matmat(self, x):
@@ -121,15 +126,19 @@ class FactoredKitaevHamiltonian:
         y = self.diag2d[:, :, None] * xm
         xc = _downcast_state(xm, self.hl.dtype)
         y = y + jnp.einsum("ab,brB->arB", self.hl, xc,
-                           preferred_element_type=x.dtype)
+                           preferred_element_type=x.dtype,
+                           precision=matmul_precision())
         y = y + jnp.einsum("adB,cd->acB", xc, self.hr_t.T,
-                           preferred_element_type=x.dtype)
+                           preferred_element_type=x.dtype,
+                           precision=matmul_precision())
         if self.p.shape[0]:
             px = jnp.einsum("kab,bdB->kadB", self.p, xc,
-                            preferred_element_type=x.dtype)
+                            preferred_element_type=x.dtype,
+                            precision=matmul_precision())
             y = y + jnp.einsum("kadB,kcd->acB",
                                _downcast_state(px, self.q.dtype), self.q,
-                               preferred_element_type=x.dtype)
+                               preferred_element_type=x.dtype,
+                               precision=matmul_precision())
         return y.reshape(-1, nb)
 
     def matmat_t(self, xk):
@@ -142,18 +151,22 @@ class FactoredKitaevHamiltonian:
         y = y + jax.lax.dot_general(          # right half: pure GEMM
             xc.reshape(k * dl, dr), self.hr_t,
             dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=xk.dtype).reshape(k, dl, dr)
+            preferred_element_type=xk.dtype,
+            precision=matmul_precision()).reshape(k, dl, dr)
         t = jax.lax.dot_general(              # left half: one swap
             xc, self.hl,
             dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=xk.dtype)  # (k, dr, dl)
+            preferred_element_type=xk.dtype,
+            precision=matmul_precision())  # (k, dr, dl)
         y = y + jnp.swapaxes(t, 1, 2)
         if self.p.shape[0]:
             px = jnp.einsum("kab,Bbd->kBad", self.p, xc,
-                            preferred_element_type=xk.dtype)
+                            preferred_element_type=xk.dtype,
+                            precision=matmul_precision())
             y = y + jnp.einsum("kBad,kcd->Bac",
                                _downcast_state(px, self.q.dtype), self.q,
-                               preferred_element_type=xk.dtype)
+                               preferred_element_type=xk.dtype,
+                               precision=matmul_precision())
         return y.reshape(k, -1)
 
     def to_dense(self):
@@ -174,11 +187,9 @@ def build_factored_kitaev(model, basis, dtype=np.float64,
     (2^nL, 2^nR) reshape, so no permutation wrapper is needed.
 
     factor_dtype (e.g. jnp.bfloat16) stores the half/cross factor
-    matrices below the compute precision (native-bf16 MXU GEMMs with
-    f32 accumulation, ~4e-3 coupling quantization).  Measured gain at
-    n=24 on v5e: 14.06 -> 12.41 ms/matvec — the f32 path already runs
-    near the chip's f32 MXU peak (58.7 TF/s), so the headroom is
-    modest."""
+    matrices below the compute precision (native-bf16 GEMMs with
+    f32 accumulation, ~4e-3 coupling quantization); its gain on the
+    GPU is not measured."""
     n = basis.nsite
     n_l = n_left if n_left is not None else n // 2
     n_r = n - n_l

@@ -13,7 +13,7 @@ hopping (term 0) and Rashba SOC (term 1):
     + sum_ij r_ij [ c^dag_ju c_id + h.c. ]   with the spin-flip carrying
       (-1)^{N_up} x within-word parities (HubbardHelper.h:250-278).
 
-TPU design: spin-conserving terms are per-block Kronecker maps; Rashba
+Design: spin-conserving terms are per-block Kronecker maps; Rashba
 spin-flips are cross-block whole-dim ELL entries.  Everything collapses
 to one ELL Hamiltonian over the union dimension C(2 nsite, N).
 """
@@ -23,7 +23,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.basis import OneSpinBasis
@@ -222,17 +221,17 @@ class RashbaSOCModel:
             vals[rows] = vals_blk.reshape(bdim, k)
 
         ell = EllPart(cols=jnp.asarray(cols.astype(np.int32)),
-                      vals=_to_device(vals))
-        return Hamiltonian(diag=_to_device(diag.astype(dtype)),
+                      vals=jnp.asarray(vals))
+        return Hamiltonian(diag=jnp.asarray(diag.astype(dtype)),
                            ell=ell, factorized=None, spin_shape=None)
 
     def block_kron_hamiltonian(self, basis: RashbaBasis,
                                dtype=np.float64):
         """The same Hamiltonian in block-Kronecker form: per-(nup,
-        ndown)-block dense one-spin hop factors (MXU GEMMs) plus the
+        ndown)-block dense one-spin hop factors (GEMMs) plus the
         Rashba spin flips as rectangular (c-map (x) c-map) Kronecker
-        couplings between adjacent blocks — every hot op a GEMM, versus
-        the 3x-slower whole-dim gather of the flat ELL.  Flat ordering
+        couplings between adjacent blocks — every hot op a GEMM instead
+        of the whole-dim gather of the flat ELL.  Flat ordering
         is identical to `hamiltonian` (block offset + idn + iu * szd),
         verified elementwise by tests/test_rashba.py."""
         from lanczosplusplus_tpu.core.blockkron import (

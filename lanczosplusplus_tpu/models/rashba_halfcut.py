@@ -3,12 +3,11 @@
 Reference capability: src/Models/HubbardOneOrbitalRashbaSOC/
 {HubbardOneOrbitalRashbaSOC.h,BasisRashbaSOC.h} (total-N union basis);
 hot loop to beat: the same model's flat gather ELL and the
-(nup, ndown) block-Kronecker form of models/rashba.py, whose
-PermCrossTerm spin-flip gathers were the measured bottleneck of the
-round-2 bench (27.1 ms/matvec at 13 sites: every one of the ~26 Rashba
-bonds pays whole-block gathers between every (nup, ndown) block pair).
+(nup, ndown) block-Kronecker form of models/rashba.py, where every
+one of the ~26 Rashba bonds of a 13-site chain pays whole-block
+gathers between every (nup, ndown) block pair.
 
-The TPU answer (same move as models/tj_factored.py): cut the lattice
+The move (same as models/tj_factored.py): cut the lattice
 spatially into L = [0, nl) and R = [nl, n).  Only total N is conserved,
 so
 
@@ -17,7 +16,7 @@ so
 with L(aL)/R(aR) the total-charge union bases (RashbaBasis) of each
 half — C(2*nl, aL) states.  EVERYTHING within a half (hopping, Rashba
 spin flips, U, V) folds into ONE dense half operator applied as a
-per-block MXU GEMM; only the geometry bonds that physically cross the
+per-block GEMM; only the geometry bonds that physically cross the
 cut (2 for a periodic chain) remain gather-typed PermCrossTerms.  The
 spin-flip gathers — 24/26 of the Rashba bonds on the 13-site chain —
 disappear into the GEMMs.
@@ -44,7 +43,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -195,7 +193,7 @@ def build_halfcut_rashba(model, basis, dtype=np.float64,
         shapes.append((left.size, right.size))
         dl = _union_diag(left, u[:nl], v[:nl])
         dr = _union_diag(right, u[nl:], v[nl:])
-        diags.append(_to_device(
+        diags.append(jnp.asarray(
             (dl[:, None] + dr[None, :]).astype(dtype)))
         lhop, lrash = _union_offdiag_dense(
             left, hops[:nl, :nl], rash[:nl, :nl], cplx)
@@ -203,9 +201,9 @@ def build_halfcut_rashba(model, basis, dtype=np.float64,
         # over from the twist (module docstring)
         rhop, rrash = _union_offdiag_dense(
             right, hops[nl:, nl:], rash[nl:, nl:], cplx)
-        row_ops.append(_to_device((lhop + lrash).astype(dtype)))
+        row_ops.append(jnp.asarray((lhop + lrash).astype(dtype)))
         scal = 1.0 if aL % 2 == 0 else -1.0
-        col_ops.append(_to_device((rhop + scal * rrash).astype(dtype)))
+        col_ops.append(jnp.asarray((rhop + scal * rrash).astype(dtype)))
         ltab[aL] = _union_tables(left)
         rtab[aL] = _union_tables(right)
 
@@ -385,6 +383,6 @@ def build_halfcut_rashba(model, basis, dtype=np.float64,
     return PermutedHamiltonian(
         inner=bk, perm=jnp.asarray(perm.astype(np.int32)),
         inv=jnp.asarray(inv.astype(np.int32)),
-        sign=None if trivial else _to_device(sign.astype(
+        sign=None if trivial else jnp.asarray(sign.astype(
             np.complex64 if jnp.dtype(dtype) == jnp.complex64 else
             np.complex128 if cplx else dtype)))

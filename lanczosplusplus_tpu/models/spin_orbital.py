@@ -25,7 +25,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core.sparse import coo_to_ell, EllPart, \
     Hamiltonian
@@ -103,7 +102,7 @@ def build_spin_orbital(nsites: int, twice_j: int = 2,
     diag = np.where(on_diag, ell_vals, 0).sum(axis=1)
     ell_vals = np.where(on_diag, 0, ell_vals)
     return Hamiltonian(
-        diag=_to_device(diag.astype(dtype)),
+        diag=jnp.asarray(diag.astype(dtype)),
         ell=EllPart(cols=jnp.asarray(ell_cols.astype(np.int32)),
-                    vals=_to_device(ell_vals)),
+                    vals=jnp.asarray(ell_vals)),
         factorized=None, spin_shape=None)

@@ -18,7 +18,7 @@ Hamiltonian (orbitals = 1 is the standard t-J chain):
 - (J_pm/2) S+_i S-_j exchange with explicit parity-string signs
   evaluated on the bra words (TjMultiOrb.h:697-800).
 
-TPU design: everything is whole-dim ELL (the occupancy constraint
+Design: everything is whole-dim ELL (the occupancy constraint
 couples the spin words, so no Kronecker factorization); rank is a
 searchsorted on the sorted combined-word array (replaces the
 reference's bounded binary search, BasisTjMultiOrbLanczos.h:70-105).
@@ -33,7 +33,6 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -300,9 +299,9 @@ class TjMultiOrbModel:
             vals[:, slot] = np.where(ok, proij * h * s, 0)
             slot += 1
         ell = EllPart(cols=jnp.asarray(cols.astype(np.int32)),
-                      vals=_to_device(vals))
+                      vals=jnp.asarray(vals))
         ham = Hamiltonian(
-            diag=_to_device(self.diagonal(basis).astype(dtype)),
+            diag=jnp.asarray(self.diagonal(basis).astype(dtype)),
             ell=ell, factorized=None, spin_shape=None)
         if self.reinterpret:
             ham = self._reinterpret_and_truncate(ham, basis, dtype)

@@ -3,8 +3,10 @@
 The native library accelerates the host-side data preparation (basis
 enumeration, ranking, ELL assembly) for large sectors; every entry
 point has a vectorized numpy fallback in core/, selected automatically
-when the library is missing.  Build with `make -C native`; the import
-also attempts an on-demand build when a compiler is available.
+when the library is missing.  The first use runs `make -C native`
+(a no-op when the library is newer than its sources), so a library
+left over from an older source or another build is rebuilt; `status()`
+says whether it loaded and, if not, why.
 """
 
 from __future__ import annotations
@@ -17,30 +19,40 @@ import numpy as np
 
 _LIB = None
 _TRIED = False
+_STATUS = "not loaded yet"
 
 
 def _repo_root():
     return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _build() -> str | None:
+    """Run make; return an error message, or None on success."""
+    try:
+        r = subprocess.run(["make", "-C",
+                            os.path.join(_repo_root(), "native")],
+                           capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"build failed: {e}"
+    if r.returncode != 0:
+        return f"build failed: {r.stderr.strip()[-300:]}"
+    return None
+
+
 def load():
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _STATUS
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
     path = os.path.join(_repo_root(), "native", "liblanczos_native.so")
+    err = _build()
     if not os.path.exists(path):
-        try:
-            subprocess.run(["make", "-C",
-                            os.path.join(_repo_root(), "native")],
-                           check=True, capture_output=True, timeout=120)
-        except Exception:
-            return None
-    if not os.path.exists(path):
+        _STATUS = f"numpy fallback ({err or 'no library after build'})"
         return None
     try:
         lib = ctypes.CDLL(path)
-    except OSError:
+    except OSError as e:
+        _STATUS = f"numpy fallback (load failed: {e})"
         return None
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -70,11 +82,19 @@ def load():
                                           i32p, ctypes.c_char_p, i32p,
                                           i64p]
     _LIB = lib
+    _STATUS = f"loaded {path}" + (f" (stale: {err})" if err else "")
     return _LIB
 
 
 def available() -> bool:
     return load() is not None
+
+
+def status() -> str:
+    """Outcome of loading the library: 'loaded <path>' or 'numpy
+    fallback (<reason>)'."""
+    load()
+    return _STATUS
 
 
 def enumerate_combinations(nsite: int, npart: int):

@@ -1,6 +1,6 @@
-"""Double-float (df64) arithmetic on TPU: f32 (hi, lo) pairs.
+"""Double-float (df64) arithmetic on the device: f32 (hi, lo) pairs.
 
-The TPU has no native float64; the reference is double everywhere
+The solver runs in float32; the reference is double everywhere
 (reference: src/Engine/LanczosDriver.h:29-33).  This module emulates
 ~2x-f32 precision (unit roundoff ~2^-48) with error-free
 transformations (Dekker/Knuth two_sum/two_prod; the split-based
@@ -9,7 +9,7 @@ exactness — XLA does not contract or reassociate elementwise float
 ops).
 
 The production use is `refined_energy`: the Lanczos solve runs in f32
-(full MXU speed), then ONE df64 Hamiltonian application + df64 dot
+(full GEMM speed), then ONE df64 Hamiltonian application + df64 dot
 evaluates the Rayleigh quotient rho(v) = <v|H|v>/<v|v> exactly enough
 (~1e-13) that the energy error is dominated by the QUADRATIC term
 O(||dv||^2) of the eigenvector error — f32 Lanczos residuals of ~1e-6
@@ -25,8 +25,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import \
-    to_device as _to_device_xfer
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 def two_sum(a, b):
@@ -93,7 +92,7 @@ def df_sum_pairwise(xh, xl):
 def _df64_apply(ham, v):
     """(yh, yl) = H v in df64: diag + generic ELL + Kronecker gather
     factors (the dense-GEMM forms are bypassed — gathers keep every
-    product error-free on the VPU)."""
+    product error-free)."""
     yh, yl = two_prod(ham.diag.astype(jnp.float32), v)
     if ham.factorized is not None:
         f = ham.factorized
@@ -155,15 +154,14 @@ def refined_energy(ham, v) -> float:
 # ---------------------------------------------------------------------------
 # Host float64 Rayleigh refinement for the forms the on-chip df64 apply
 # cannot cover: block-Kronecker / permuted factored Hamiltonians (their
-# hot op is an MXU GEMM, and the MXU rounds its accumulation — there is
+# hot op is a GEMM, which rounds its accumulation — there is
 # no error-free-transformation route through it) and complex scalars.
 # One f64 matvec-worth of numpy work, off the hot path, gives the exact
 # same f64 bar (reference: src/Engine/LanczosDriver.h:29-33 RealType =
 # double).
 
 def _np64(a, ctype):
-    from lanczosplusplus_tpu.utils.transfer import to_host
-    return to_host(a).astype(ctype)
+    return np.asarray(a).astype(ctype)
 
 
 def _host_matvec_blockkron(ham, xs, ctype):
@@ -355,7 +353,7 @@ def rqi_refined_energy(ham, v, iters: int = 2, restart: int = 20,
                        maxiter: int = 3) -> float:
     """Rayleigh-quotient iteration with host-f64 residuals and device
     f32/c64 correction solves, for the Hamiltonian forms whose hot op
-    is an MXU GEMM (block-Kronecker / permuted factored forms, complex
+    is a GEMM (block-Kronecker / permuted factored forms, complex
     scalars) where no on-chip error-free-transformation route exists.
     Costs iters+1 host f64 matvecs + iters cheap device GMRES solves."""
     cplx = (jnp.issubdtype(jnp.dtype(getattr(v, "dtype", np.float64)),
@@ -373,10 +371,9 @@ def rqi_refined_energy(ham, v, iters: int = 2, restart: int = 20,
         r = r - np.vdot(x, r) * x
         if np.linalg.norm(r) <= 1e-13 * max(1.0, abs(theta)):
             return theta
-        from lanczosplusplus_tpu.utils.transfer import to_host as _th
-        t = _th(_gmres_correct(
-            ham, _to_device_xfer(r.astype(dt)),
-            _to_device_xfer(np.asarray(theta).astype(dt)),
+        t = np.asarray(_gmres_correct(
+            ham, jnp.asarray(r.astype(dt)),
+            jnp.asarray(np.asarray(theta).astype(dt)),
             restart=restart,
             maxiter=maxiter)).astype(ctype)
         t = t - np.vdot(x, t) * x
@@ -409,12 +406,12 @@ def _df64_residual_vec(x, yh, yl, theta):
     ph, pl = two_prod(theta, x)
     rh, rl = df_add(yh, yl, -ph, -pl)
     r = rh + rl
-    return r - (x @ r) * x
+    return r - jnp.dot(x, r, precision=matmul_precision()) * x
 
 
 @jax.jit
 def _apply_correction(x, t):
-    t = t - (x @ t) * x
+    t = t - jnp.dot(x, t, precision=matmul_precision()) * x
     xn = x - t
     return xn / jnp.linalg.norm(xn)
 

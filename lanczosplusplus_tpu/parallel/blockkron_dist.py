@@ -2,7 +2,7 @@
 
 The factored forms (t-J / Rashba half-cuts, Kitaev, FeAs spin-orbit —
 core/blockkron.py) are COMPUTE-bound: dense half-operator GEMMs plus a
-few cut-crossing gathers, with no O(nnz) index traffic.  The TPU-native
+few cut-crossing gathers, with no O(nnz) index traffic.  The device
 distribution for that profile is therefore the opposite of the
 gather-ELL paths: replicate the (small, O(dim)) state vector once per
 matvec and shard the FLOPs —
@@ -14,7 +14,7 @@ matvec and shard the FLOPs —
   the diagonal and the PermCrossTerm column gathers partition the same
   way;
 - the only collective is ONE all-gather of the state vector per matvec
-  (42 MB at the 13-site Rashba sector — sub-millisecond over ICI),
+  (42 MB at the 13-site Rashba sector),
   against fully sharded GEMMs.
 
 This rides GSPMD: arrays are placed with the shardings above and the
@@ -41,6 +41,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from lanczosplusplus_tpu.core.blockkron import (BlockKronHamiltonian,
                                                 PermCrossTerm)
 from lanczosplusplus_tpu.parallel.mesh import ROWS
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 @jax.tree_util.register_dataclass
@@ -78,7 +79,8 @@ class DistBlockKron:
         xf = jax.lax.with_sharding_constraint(x, repl)  # all-gather
         xf = xf[:bk.dim]
         xs = bk._split(xf)
-        pet = dict(preferred_element_type=x.dtype)
+        pet = dict(preferred_element_type=x.dtype,
+                   precision=matmul_precision())
         ys = []
         for b in range(len(xs)):
             yb = bk.diag[b] * xs[b]

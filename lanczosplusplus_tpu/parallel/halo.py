@@ -17,14 +17,12 @@ entries the consumer's rows read from the owner's shard
 `halo_matvec` is a `shard_map` whose only collective is one
 all-to-all of the halo values; the local gather has no data dependence
 on the exchange, so the compiler is FREE to overlap them — whether it
-does is backend-dependent and was checked, not assumed (round-5
-VERDICT item 8): on the CPU emulation mesh the compiled module runs a
-single SYNCHRONOUS all-to-all (no async start/done pair — no overlap;
-the CPU mesh is a correctness vehicle), and on the single attached
-TPU the 1-device degenerate plan compiles the exchange away entirely.
-Overlap on a real multi-chip ICI mesh is the latency-hiding
-scheduler's decision and remains unverifiable on this one-chip setup
-(recorded in BASELINE.md).
+does is backend-dependent and was checked, not assumed: on the CPU
+emulation mesh the compiled module runs a single SYNCHRONOUS
+all-to-all (no async start/done pair — no overlap; the CPU mesh is a
+correctness vehicle), and a 1-device plan compiles the exchange away
+entirely.  Overlap on a real multi-card mesh is the latency-hiding
+scheduler's decision and is not measured yet.
 """
 
 from __future__ import annotations
@@ -38,6 +36,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from lanczosplusplus_tpu.parallel.mesh import ROWS
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 class HaloPlan:
@@ -195,8 +194,7 @@ class KronHaloPlan:
     ndev, like parallel/kron.py), so the up-spin Kronecker part is
     shard-local by construction and the only remote data are whole
     szu-wide dn rows: the all-to-all moves contiguous (max_rows, szu)
-    tiles, the dn gather reads contiguous rows (the VPU-friendly
-    layout), and the plan costs O(size_down * Kd) host work — no
+    tiles, the dn gather reads contiguous rows, and the plan costs O(size_down * Kd) host work — no
     O(nnz) index array is ever materialized, on host or device.
 
     A spin-coupled flat-ELL remainder (FeAs U2/U3/Jpm terms that no
@@ -337,7 +335,7 @@ class KronHaloPlan:
         up_dense = self.up_dense
         if up_dense is None and self.up_cols is not None:
             # densify the local up factor (it is tiny relative to the
-            # sector and turns the local hot loop into an MXU GEMM)
+            # sector and turns the local hot loop into a GEMM)
             szu = self.spin_shape[1]
             a = np.zeros((szu, szu), self.up_vals.dtype)
             r = np.repeat(np.arange(szu), self.up_cols.shape[1])
@@ -402,7 +400,8 @@ class KronHaloHamiltonian:
                 y = y + jax.lax.dot_general(
                     x2d, up_dense,
                     dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=x2d.dtype)
+                    preferred_element_type=x2d.dtype,
+                    precision=matmul_precision())
             for k in range(vd.shape[1]):
                 y = y + vd[:, k, None] * combined[ncd[:, k], :]
             if rem_cols is not None:

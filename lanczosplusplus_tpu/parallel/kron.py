@@ -8,14 +8,14 @@ keeps the Kronecker structure instead (reference has no distribution
 at all; its pthreads row loop is HubbardHelper.h:119-133):
 
   X = x.reshape(size_down, size_up), sharded over rows (size_down).
-  - I (x) A_up:  X @ A_up^T         -> shard-local MXU GEMM, no comms
+  - I (x) A_up:  X @ A_up^T         -> shard-local GEMM, no comms
   - A_dn (x) I:  A_dn @ X           -> GSPMD inserts the collective
-    (all-gather of X rows or collective matmul over ICI)
+    (all-gather of X rows or a collective matmul)
   - spin-coupled remainder (FeAs U2/U3/Jpm): tiny flat ELL, gather
     triggers an x all-gather only when present
 
 so at least half the off-diagonal FLOPs run with zero communication,
-and everything on the MXU.  This is the TPU-native answer to "shard
+and every hot op is a GEMM.  This is the device answer to "shard
 the sector rows" (SURVEY.md section 2.6) for factorizable models.
 """
 
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from lanczosplusplus_tpu.parallel.mesh import ROWS
+from lanczosplusplus_tpu.config import matmul_precision
 
 
 @jax.tree_util.register_dataclass
@@ -68,12 +69,14 @@ class KronHamiltonian:
             y = y + jax.lax.dot_general(
                 x2d, self.up_dense,
                 dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=x2d.dtype)
+                preferred_element_type=x2d.dtype,
+                precision=matmul_precision())
         if self.dn_dense is not None:
             y = y + jax.lax.dot_general(
                 self.dn_dense, x2d,
                 dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=x2d.dtype)
+                preferred_element_type=x2d.dtype,
+                precision=matmul_precision())
         y = y.reshape(-1)
         if self.ell_cols is not None:
             y = y + jnp.sum(self.ell_vals * x[self.ell_cols], axis=-1)
@@ -84,7 +87,7 @@ class KronHamiltonian:
         FTLM/KPM/spectral-fleet recurrences keep their carriers in this
         layout (same contract as Hamiltonian.matmat_t).  The up-factor
         contraction folds (k, szd) into the GEMM row dimension (pure
-        shard-local MXU); only the dn factor pays a collective."""
+        shard-local GEMM); only the dn factor pays a collective."""
         szd, szu = self.diag2d.shape
         k = xk.shape[0]
         x3 = xk.reshape(k, szd, szu)
@@ -93,17 +96,20 @@ class KronHamiltonian:
             y = y + jax.lax.dot_general(
                 x3, self.up_dense,
                 dimension_numbers=(((2,), (1,)), ((), ())),
-                preferred_element_type=xk.dtype)
+                preferred_element_type=xk.dtype,
+                precision=matmul_precision())
         if self.dn_dense is not None:
             t = jax.lax.dot_general(
                 self.dn_dense, x3,
                 dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=xk.dtype)   # (szd, k, szu)
+                preferred_element_type=xk.dtype,
+                precision=matmul_precision())   # (szd, k, szu)
             y = y + jnp.transpose(t, (1, 0, 2))
         y = y.reshape(k, -1)
         if self.ell_cols is not None:
             y = y + jnp.einsum("rs,brs->br", self.ell_vals,
-                               xk[:, self.ell_cols])
+                               xk[:, self.ell_cols],
+                               precision=matmul_precision())
         return y
 
 

@@ -3,10 +3,10 @@
 The reference's only hot-loop parallelism is a pthreads parallel-for
 over Hilbert-space rows of the matrix-free apply (reference:
 src/Models/HubbardOneOrbital/HubbardHelper.h:119-133,
-src/Engine/ProgramGlobals.h via Parallelizer2).  The TPU-native scaling
+src/Engine/ProgramGlobals.h via Parallelizer2).  The device scaling
 of the same axis: ELL rows, the diagonal and the state vector are
 1-D sharded over a `jax.sharding.Mesh`; the column gather x[cols] makes
-XLA insert an all-gather of the state vector over ICI, and Lanczos
+XLA insert an all-gather of the state vector, and Lanczos
 scalars (vdot, norm) become sharded reductions (psum).
 """
 
@@ -18,6 +18,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from lanczosplusplus_tpu.config import matmul_precision
 
 ROWS = "rows"
 
@@ -46,7 +48,7 @@ def sharded_vector(x, mesh: Mesh):
 
 def shard_for_mesh(ham, mesh: Mesh, prefer_kron: bool = True):
     """Place a sector Hamiltonian on `mesh` in its best distributed
-    form: Kronecker (parallel/kron.py — shard-local MXU GEMM for the
+    form: Kronecker (parallel/kron.py — shard-local GEMM for the
     up factor, one collective for the down factor) whenever the
     Hamiltonian has densifiable spin factors, else the padded flat ELL
     (all-gather of x per matvec).  Block-factorized forms
@@ -179,7 +181,8 @@ def sharded_selective_solve(sham, mesh: Mesh, orig_dim: int,
             w = jnp.asarray(np.vstack([evecs[:, :1],
                                        np.zeros((steps - m, 1))]),
                             dtype=V.dtype)
-            v_r = (V.T @ w)[:, 0]
+            v_r = jnp.matmul(V.T, w,
+                             precision=matmul_precision())[:, 0]
             v0 = v_r / jnp.linalg.norm(v_r)
             continue
         steps = int(min(orig_dim, steps * 2))
@@ -220,7 +223,7 @@ def distributed_lowest_states(ham, mesh: Mesh, num_states: int = 1,
     """Row-sharded computeAllStatesBelow over a device mesh.
 
     Spin-factorizable Hamiltonians run in distributed Kronecker form
-    (shard-local MXU GEMM for the up factor; only the down factor pays
+    (shard-local GEMM for the up factor; only the down factor pays
     a collective); block-factorized forms (BlockKronHamiltonian or a
     PermutedHamiltonian wrapping one) run column-sharded with the
     state replicated per matvec (parallel/blockkron_dist.py); others
@@ -256,7 +259,7 @@ def distributed_ftlm(ham, mesh: Mesh, beta_grid, num_vectors: int = 32,
                      operators=None):
     """Finite-temperature Lanczos with the sector row-sharded over the
     mesh: each batched-recurrence step is a sharded SpMM (XLA inserts
-    the state-block all-gather over ICI) and the per-column scalars are
+    the state-block all-gather) and the per-column scalars are
     psum reductions.  Diagonal operators (1-D arrays) are padded
     automatically; matmat-style operator objects at the unpadded
     sector dimension (e.g. the Hamiltonian itself) are sharded+padded

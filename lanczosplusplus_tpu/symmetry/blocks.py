@@ -19,7 +19,7 @@ Design differences from the reference, documented:
 
 The projector assembly runs host-side in scipy sparse (tiny compared to
 the Lanczos solve); each block is converted back to the device ELL
-Hamiltonian and solved on the TPU.
+Hamiltonian and solved on the device.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import numpy as np
 import scipy.sparse as sp
 import jax.numpy as jnp
 
-from lanczosplusplus_tpu.utils.transfer import to_device as _to_device
 
 from lanczosplusplus_tpu.core import bits
 from lanczosplusplus_tpu.core.bits import WORD
@@ -58,9 +57,9 @@ def _csr_to_ell_ham(m: sp.csr_matrix, dtype) -> Hamiltonian:
     off = ~diag_mask
     cols, vals = coo_to_ell(dim, m.row[off], m.col[off],
                             m.data[off].astype(dtype))
-    return Hamiltonian(diag=_to_device(diag),
+    return Hamiltonian(diag=jnp.asarray(diag),
                        ell=EllPart(cols=jnp.asarray(cols),
-                                   vals=_to_device(vals)),
+                                   vals=jnp.asarray(vals)),
                        factorized=None, spin_shape=None)
 
 
@@ -120,7 +119,6 @@ def _blockkron_restricted_rows(bk, reps):
     indices.  Every contribution — per-block row/col operators, dense
     CrossTerms (incl. Hermitian partners), PermCrossTerm channels — is
     read off the factor structure; nothing dim x K is built."""
-    from lanczosplusplus_tpu.utils.transfer import to_host as _th
 
     shapes = bk.shapes
     sizes = np.array([r * c for (r, c) in shapes], dtype=np.int64)
@@ -148,30 +146,30 @@ def _blockkron_restricted_rows(bk, reps):
         sel = np.nonzero(blk == b)[0]
         R, C = shapes[b]
         r, c = np.divmod(reps[sel] - offs[b], C)
-        diag_out[sel] = _th(bk.diag[b]).astype(vdt)[r, c]
+        diag_out[sel] = np.asarray(bk.diag[b]).astype(vdt)[r, c]
         cs, vs = [], []
         if bk.row_ops[b] is not None:
-            rc, rv = _dense_to_ell_host(_th(bk.row_ops[b]))
+            rc, rv = _dense_to_ell_host(np.asarray(bk.row_ops[b]))
             cs.append(offs[b] + rc[r] * C + c[:, None])
             vs.append(rv[r].astype(vdt))
         if bk.col_ops[b] is not None:
-            cc, cv = _dense_to_ell_host(_th(bk.col_ops[b]))
+            cc, cv = _dense_to_ell_host(np.asarray(bk.col_ops[b]))
             cs.append(offs[b] + (r * C)[:, None] + cc[c])
             vs.append(cv[c].astype(vdt))
         for t in pc_by_dst.get(int(b), ()):
             Cs = shapes[t.src][1]
-            rs = _th(t.row_src)
-            ra = _th(t.row_amp).astype(vdt)
-            csrc = _th(t.col_src)
-            ca = _th(t.col_amp).astype(vdt)
+            rs = np.asarray(t.row_src)
+            ra = np.asarray(t.row_amp).astype(vdt)
+            csrc = np.asarray(t.col_src)
+            ca = np.asarray(t.col_amp).astype(vdt)
             for k in range(rs.shape[0]):
                 cs.append((offs[t.src] + rs[k][r].astype(np.int64) * Cs
                            + csrc[k][c].astype(np.int64))[:, None])
                 vs.append((ra[k][r] * ca[k][c])[:, None])
         for t in cr_by_dst.get(int(b), ()):
             Cs = shapes[t.src][1]
-            left = _th(t.left)
-            right = _th(t.right)
+            left = np.asarray(t.left)
+            right = np.asarray(t.right)
             for k in range(left.shape[0]):
                 lc, lv = _dense_to_ell_host(left[k])
                 rc2, rv2 = _dense_to_ell_host(right[k])
@@ -184,8 +182,8 @@ def _blockkron_restricted_rows(bk, reps):
             # Hermitian partner: H[src (r, c), dst (o, d)] =
             # sum_k conj(left[k][o, r]) conj(right[k][d, c])
             Cd = shapes[t.dst][1]
-            left = _th(t.left)
-            right = _th(t.right)
+            left = np.asarray(t.left)
+            right = np.asarray(t.right)
             for k in range(left.shape[0]):
                 lc, lv = _dense_to_ell_host(np.conj(left[k]).T)
                 rc2, rv2 = _dense_to_ell_host(np.conj(right[k]).T)
@@ -228,13 +226,12 @@ def _restricted_rows(ham, reps):
         # PermutedHamiltonian: row f of H_flat is row inv[f] of the
         # inner block form with columns mapped through perm and the
         # optional Jordan-Wigner wrap sign applied on both sides
-        from lanczosplusplus_tpu.utils.transfer import to_host as _th
-        inv = _th(ham.inv).astype(np.int64)
-        perm = _th(ham.perm).astype(np.int64)
+        inv = np.asarray(ham.inv).astype(np.int64)
+        perm = np.asarray(ham.perm).astype(np.int64)
         p = inv[reps]
         cols_i, vals, diag = _blockkron_restricted_rows(ham.inner, p)
         if ham.sign is not None:
-            s = _th(ham.sign)
+            s = np.asarray(ham.sign)
             vals = vals * s[p][:, None] * s[cols_i]
         return perm[cols_i], vals, diag
     if hasattr(ham, "shapes") and hasattr(ham, "perm_cross"):
@@ -396,8 +393,8 @@ class _OrbitBlockSymmetry:
     where w_s[x] = sum_g chars[s, g] sigma_g(b) [x = g . rep_b] is the
     symmetry-adapted amplitude table (one O(dim) pass per group
     element).  NO full-sector CSR, NO dense projector, NO U.H.U^dag
-    SpGEMM: O(dim * K / G) per block, so the sectors that motivate the
-    TPU stay reachable (the O(dim^2) projector this replaces topped out
+    SpGEMM: O(dim * K / G) per block, so device-sized sectors stay
+    reachable (the O(dim^2) projector this replaces topped out
     at toy dims)."""
 
     def _setup(self, ham, g_tgt, g_sign, chars, dtype):

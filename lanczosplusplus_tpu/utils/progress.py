@@ -19,14 +19,16 @@ class ProgressIndicator:
     def __init__(self, name: str, stream=None):
         self.name = name
         self.stream = stream or sys.stderr
+        self.seconds = {}       # label -> wall seconds of its last phase
 
     def __call__(self, msg: str):
         t = time.time() - _T0
         self.stream.write(f"{self.name} [{t:.2f}]: {msg}\n")
 
     @contextlib.contextmanager
-    def phase(self, label: str):
-        self(f"{label} starting")
+    def phase(self, label: str, detail: str = ""):
+        self(f"{label} {detail} starting" if detail else
+             f"{label} starting")
         t0 = time.perf_counter()
         profile_dir = os.environ.get("LPP_PROFILE_DIR")
         ctx = contextlib.nullcontext()
@@ -35,4 +37,5 @@ class ProgressIndicator:
             ctx = jax.profiler.trace(profile_dir)
         with ctx:
             yield
-        self(f"{label} done in {time.perf_counter() - t0:.3f}s")
+        self.seconds[label] = time.perf_counter() - t0
+        self(f"{label} done in {self.seconds[label]:.3f}s")

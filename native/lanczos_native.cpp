@@ -1,6 +1,6 @@
 // Native host-side runtime kernels for lanczosplusplus_tpu.
 //
-// The TPU executes the numeric hot path (SpMV/GEMM/Lanczos); these are
+// The accelerator executes the numeric hot path (SpMV/GEMM/Lanczos); these are
 // the *host* hot loops that prepare device data: basis enumeration,
 // combinadic ranking, and one-spin hopping ELL assembly.  They mirror
 // the vectorized numpy implementations in core/ (which remain the

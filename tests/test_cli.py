@@ -7,13 +7,14 @@ import numpy as np
 import pytest
 
 from lanczosplusplus_tpu.cli import lanczos_main, ed_main
+from reference_inputs import input_path
 
 
 def test_lanczos_cli_input0(tmp_path, capsys):
     """Run the verbatim reference input0.inp end to end."""
     os.chdir(tmp_path)
     eng = lanczos_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input0.inp"])
+        ["-f", input_path("input0.inp")])
     out = capsys.readouterr().out
     assert "Energy=" in out
     assert eng.ground_energy == pytest.approx(-2 * np.sqrt(5), abs=1e-9)
@@ -22,10 +23,10 @@ def test_lanczos_cli_input0(tmp_path, capsys):
 def test_lanczos_cli_gf_and_comb(tmp_path, capsys):
     os.chdir(tmp_path)
     eng = lanczos_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input0.inp",
+        ["-f", input_path("input0.inp"),
          "-g", "c", "-s", "0,0"])
     # TSPSites absent: no pairs unless DOS; add DOS case:
-    text = open("/root/reference/TestSuite/inputs/input0.inp").read()
+    text = open(input_path("input0.inp")).read()
     text += "\nComputeDensityOfStates=1\n"
     inp_path = tmp_path / "in_dos.inp"
     inp_path.write_text(text)
@@ -45,7 +46,7 @@ def test_lanczos_cli_gf_and_comb(tmp_path, capsys):
 def test_lanczos_cli_measure_and_cicj(tmp_path, capsys):
     os.chdir(tmp_path)
     eng = lanczos_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input0.inp",
+        ["-f", input_path("input0.inp"),
          "-c", "n", "-m", "gs|n[0];n?1[0]|gs", "-r", "2"])
     out = capsys.readouterr().out
     assert "Reduced Density Matrix" in out
@@ -56,7 +57,7 @@ def test_measure_matches_double_occupancy(tmp_path):
     """<gs|n_up(0) n_down(0)|gs> via rahul method vs dense."""
     os.chdir(tmp_path)
     eng = lanczos_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input0.inp"])
+        ["-f", input_path("input0.inp")])
     val = eng.measure("gs|n[0];n?1[0]|gs")
     gs = np.asarray(eng.eigenvector(0))
     from lanczosplusplus_tpu.core import bits as B
@@ -68,7 +69,7 @@ def test_measure_matches_double_occupancy(tmp_path):
 
 
 def test_ed_cli(tmp_path, capsys):
-    text = open("/root/reference/TestSuite/inputs/input0.inp").read()
+    text = open(input_path("input0.inp")).read()
     text += ("\nTemperatureOrBeta=beta\nTemperatureOrBetaStart=0.5\n"
              "TemperatureOrBetaTotal=3\nTemperatureOrBetaStep=1.0\n")
     inp_path = tmp_path / "ed.inp"
@@ -84,7 +85,7 @@ def test_input10_dumpmatrix_full_spectrum(tmp_path, capsys):
     must equal the analytic Rashba dispersion."""
     os.chdir(tmp_path)
     eng = lanczos_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input10.inp"])
+        ["-f", input_path("input10.inp")])
     out = capsys.readouterr().out
     assert "#FullSpectrum" in out
     lines = out.split("#FullSpectrum")[1].strip().splitlines()
@@ -98,7 +99,7 @@ def test_input10_dumpmatrix_full_spectrum(tmp_path, capsys):
 def test_thermal_cli(tmp_path, capsys):
     from lanczosplusplus_tpu.cli import thermal_main
     gc = thermal_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input0.inp",
+        ["-f", input_path("input0.inp"),
          "-c", "c", "-b", "1.5", "-s", "0", "-m", "0.5"])
     err = capsys.readouterr().err
     assert "density=" in err and "energy=" in err
@@ -108,7 +109,7 @@ def test_sqomega_cli(tmp_path, capsys):
     from lanczosplusplus_tpu.cli import sqomega_main
     import sys
     sys.path.insert(0, "tests")
-    text = open("/root/reference/TestSuite/inputs/input0.inp").read()
+    text = open(input_path("input0.inp")).read()
     path = tmp_path / "sq.inp"
     path.write_text(text)
     out = sqomega_main.run(["-f", str(path), "-g", "sz",
@@ -123,9 +124,9 @@ def test_input100_and_104_end_to_end(tmp_path, capsys):
     AnisotropyD and must shift the ground-state energy."""
     os.chdir(tmp_path)
     eng100 = lanczos_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input100.inp"])
+        ["-f", input_path("input100.inp")])
     eng104 = lanczos_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input104.inp"])
+        ["-f", input_path("input104.inp")])
     # regression goldens (established by this framework; the C++
     # reference is unbuildable here — see BASELINE.md)
     assert eng100.ground_energy == pytest.approx(-3.099464014219,
@@ -137,7 +138,7 @@ def test_input100_and_104_end_to_end(tmp_path, capsys):
 def test_consistency_cli(capsys):
     from lanczosplusplus_tpu.cli import consistency_main
     e = consistency_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input0.inp", "--tinf"])
+        ["-f", input_path("input0.inp"), "--tinf"])
     out = capsys.readouterr().out
     assert "Lanczos: lowest eigenvalue=" in out
     assert "Lapack: lowest eigenvalue=" in out
@@ -149,7 +150,7 @@ def test_consistency_cli(capsys):
 
 def test_excited_state_braket_measure(tmp_path):
     os.chdir(tmp_path)
-    text = open("/root/reference/TestSuite/inputs/input0.inp").read()
+    text = open(input_path("input0.inp")).read()
     text += "\nExcited=1\n"
     path = tmp_path / "exc.inp"
     path.write_text(text)
@@ -175,7 +176,7 @@ def test_excited_state_braket_measure(tmp_path):
 def test_qpz_cli(capsys):
     from lanczosplusplus_tpu.cli import qpz_main
     out = qpz_main.run(
-        ["-f", "/root/reference/TestSuite/inputs/input0.inp", "--ratio"])
+        ["-f", input_path("input0.inp"), "--ratio"])
     assert len(out) == 4
     cap = capsys.readouterr().out
     assert len(cap.strip().splitlines()) == 4
@@ -183,7 +184,7 @@ def test_qpz_cli(capsys):
 
 def test_dynamics1_cli(tmp_path, capsys):
     from lanczosplusplus_tpu.cli import dynamics1_main
-    text = open("/root/reference/TestSuite/inputs/input100.inp").read()
+    text = open(input_path("input100.inp")).read()
     text = text.replace("TotalNumberOfSites=6", "TotalNumberOfSites=2") \
         .replace("potentialV 24", "potentialV 8") \
         .replace("4.10 4.10 4.10 4.10 4.10 4.10", "0 0") \

@@ -8,6 +8,7 @@ from lanczosplusplus_tpu.io_.input_parser import parse_input
 from lanczosplusplus_tpu.geometry import Geometry
 from lanczosplusplus_tpu.models import build_model
 from lanczosplusplus_tpu.engine import Engine
+from reference_inputs import input_path
 
 
 def feas_input(nsite, nup, ndown, orbitals=2, u=(1.0, 0.6, -0.2, -0.1),
@@ -172,7 +173,7 @@ def test_feas_u0_free_fermions():
 def test_feas_input100_sector():
     """TestSuite input100.inp: 6-site 2-orbital INT_PAPER33; checks
     hermiticity via matvec and E0 vs ARPACK oracle at dim 48400."""
-    with open("/root/reference/TestSuite/inputs/input100.inp") as f:
+    with open(input_path("input100.inp")) as f:
         text = f.read()
     inp = parse_input(text)
     geom = Geometry(inp)

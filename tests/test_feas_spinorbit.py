@@ -248,7 +248,7 @@ def test_spin_orbit_fock_space_oracle():
                0.1, 0.0, 0.05, -0.2]),
 ])
 def test_block_kron_matches_flat(nsite, nup, ndown, so):
-    """The block-Kronecker form (MXU/perm-gather path) equals the flat
+    """The block-Kronecker form (GEMM/perm-gather path) equals the flat
     gather-ELL Hamiltonian elementwise."""
     from lanczosplusplus_tpu.models.feas_spinorbit_factored import \
         build_factored_feas_spinorbit

@@ -6,6 +6,7 @@ import pytest
 from lanczosplusplus_tpu.io_.input_parser import parse_input
 from lanczosplusplus_tpu.io_.input_check import (InputValidationError,
                                                  validate_input, usage)
+from reference_inputs import input_path
 
 
 GOOD = """
@@ -102,7 +103,7 @@ MagneticField 3
 def test_reference_inputs_validate():
     for name in ("input0.inp", "input10.inp", "input100.inp",
                  "input104.inp"):
-        with open(f"/root/reference/TestSuite/inputs/{name}") as f:
+        with open(input_path(name)) as f:
             assert validate_input(parse_input(f.read())), name
 
 

@@ -9,8 +9,12 @@ from lanczosplusplus_tpu.core.combinatorics import (
 from lanczosplusplus_tpu.core.sparse import one_spin_ell
 from lanczosplusplus_tpu.core.basis import OneSpinBasis
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native library not built")
+
+
+@pytest.fixture(autouse=True)
+def _needs_native():
+    if not native.available():
+        pytest.skip(f"native library unavailable: {native.status()}")
 
 
 def test_native_enumeration_matches_numpy():

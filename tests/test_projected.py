@@ -1,4 +1,4 @@
-"""Momentum-projected Lanczos (symmetry/projected.py): the TPU-native
+"""Momentum-projected Lanczos (symmetry/projected.py): the projected
 translation-sector solver must reproduce the orbit-block spectra."""
 
 import numpy as np

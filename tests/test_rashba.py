@@ -218,7 +218,7 @@ def test_two_particle_rashba_brute_force():
 
 
 def test_block_kron_matches_flat_ell():
-    """The block-Kronecker form (MXU path) equals the flat ELL
+    """The block-Kronecker form (GEMM path) equals the flat ELL
     Hamiltonian elementwise, real and complex."""
     import jax.numpy as jnp
 

@@ -7,11 +7,12 @@ from lanczosplusplus_tpu.io_.input_parser import parse_input
 from lanczosplusplus_tpu.geometry import Geometry
 from lanczosplusplus_tpu.models import build_model
 from lanczosplusplus_tpu.io_ import sector_files
+from reference_inputs import input_path
 
 
 def test_roundtrip_and_partition(tmp_path):
     inp = parse_input(open(
-        "/root/reference/TestSuite/inputs/input0.inp").read()
+        input_path("input0.inp")).read()
         .replace("TotalNumberOfSites=4", "TotalNumberOfSites=2")
         .replace("hubbardU 4\n0 0 0 0", "hubbardU 2 3 3")
         .replace("potentialV 8\n0 0 0 0\n0 0 0 0", "potentialV 4 0 0 0 0"))
